@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
+
+Run from the root of the repository, with no arguments:
+
+    python3 chip_smoke.py
+
+It needs nothing but the repository and one card, and exits non-zero
+(printing no result) when there is no card or no port beside it. Phases,
+each printing one JSON line:
+
+1. device: the card's name and power limit (nvidia-smi); the CUDA kernels
+   are built from ``whisper_flamingo_tpu_torch/csrc`` (one nvcc per source,
+   all at once).
+2. flash64: the encoder-attention kernel against its plain version on the
+   card at (B*H, T, 64) = (96, 1500, 64) in bf16 and fp32 and a ragged
+   T = 300; its time beside the bound, the plain version's and SDPA's.
+3. decode_attn: the decode-attention kernel against its plain version at
+   T_max 448, D 768, 12 heads: 8 rows with a scalar and with per-row
+   offsets, 120 rows (beam 15 x batch 8) with a scalar offset; output and
+   both updated caches. Times beside the bound.
+4. end to end through the port's entry points (``load_model("small")``,
+   random weights from a seed; ``log_mel_spectrogram`` on the card;
+   ``DecodingTask``) on the bench protocol: batch 8 of 30 s synthetic
+   audio, English, no timestamps, 64 tokens with EOT suppressed. fp32
+   greedy through the kernels must give the tokens of the plain path; bf16
+   greedy and beam 15, and the small Whisper-Flamingo (one stream, gates
+   at 1) in beam 15, give RTF and tokens/s. The kernels' launch counters
+   are set to 0 before each run and must show 12 encoder launches and 12
+   per incremental decoder step.
+
+Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
+throughout. Any failed phase raises, and the script exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; fp32 without TF32
+
+BATCH, SAMPLE_LEN, BEAM = 8, 64, 15
+T_MAX, D_MODEL, N_HEAD = 448, 768, 12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, dtype_name: str):
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def phase_flash64(torch, flash64, gen):
+    import torch.nn.functional as F
+
+    rows, results = [], {}
+    cases = [("bfloat16", 1500, 1e-2), ("float32", 1500, 1e-5),
+             ("bfloat16", 300, 1e-2), ("float32", 300, 1e-5)]
+    for dtype_name, t, tol in cases:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (torch.randn(BATCH, N_HEAD, t, 64, generator=gen, device="cuda") for _ in range(3))
+        q, k = q * 64 ** -0.25, k * 64 ** -0.25
+        q, k, v = (x.to(dtype) for x in (q, k, v))
+        out = flash64.flash64_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = flash64.flash64_attention_plain(q, k, v)
+        err = max_err(out, ref)
+        if not (torch.isfinite(out).all().item() and err <= tol):
+            raise AssertionError(f"flash64 {dtype_name} t={t}: max |err| {err} > {tol}")
+        row = {"dtype": dtype_name, "shape": [BATCH * N_HEAD, t, 64], "max_abs_err": err, "tol": tol}
+        if t == 1500:
+            bh = BATCH * N_HEAD
+            row["ms"] = time_ms(lambda: flash64.flash64_attention(q, k, v), 10)
+            row["plain_ms"] = time_ms(lambda: flash64.flash64_attention_plain(q, k, v), 3, 1)
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 10
+            )
+            row["bound_ms"], row["bound_by"] = bound(
+                4.0 * bh * t * t * 64, 4.0 * bh * t * 64 * q.element_size(), dtype_name
+            )
+            results[dtype_name] = row
+        rows.append(row)
+    emit({"phase": "flash64", "cases": rows})
+    return results["bfloat16"]
+
+
+def phase_decode_attn(torch, decode_attn, gen):
+    import torch.nn.functional as F
+
+    dh = D_MODEL // N_HEAD
+    rows, results = [], {}
+    off = SAMPLE_LEN + 2  # the last step of the bench protocol (3 initial tokens)
+    for dtype_name, tol in (("bfloat16", 2e-2), ("float32", 1e-5)):
+        dtype = getattr(torch, dtype_name)
+        for b, mode in ((8, "scalar"), (8, "per_row"), (BATCH * BEAM, "scalar")):
+            q, kn, vn = (torch.randn(b, 1, D_MODEL, generator=gen, device="cuda").to(dtype)
+                         for _ in range(3))
+            kc = (torch.randn(b, T_MAX, D_MODEL, generator=gen, device="cuda") * 0.5).to(dtype)
+            vc = (torch.randn(b, T_MAX, D_MODEL, generator=gen, device="cuda") * 0.5).to(dtype)
+            if mode == "scalar":
+                offset = torch.tensor([off], dtype=torch.int32, device="cuda")
+            else:
+                offset = torch.randint(0, T_MAX, (b,), generator=gen, device="cuda",
+                                       dtype=torch.int32)
+            kc2, vc2 = kc.clone(), vc.clone()
+            out, _, _ = decode_attn.fused_step(q, kn, vn, kc, vc, offset, N_HEAD)
+            torch.cuda.synchronize()
+            ref = decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, offset, N_HEAD)
+            err = max_err(out, ref)
+            cache_err = max(max_err(kc, kc2), max_err(vc, vc2))
+            if not (torch.isfinite(out).all().item() and err <= tol and cache_err == 0.0):
+                raise AssertionError(
+                    f"decode_attn {dtype_name} b={b} {mode}: max |err| {err} (tol {tol}), "
+                    f"cache max |err| {cache_err} (must be 0)"
+                )
+            row = {"dtype": dtype_name, "rows": b, "offset": mode, "max_abs_err": err,
+                   "cache_max_abs_err": cache_err, "tol": tol}
+            if mode == "scalar":
+                row["ms"] = time_ms(
+                    lambda: decode_attn.fused_step(q, kn, vn, kc, vc, offset, N_HEAD), 200, 10
+                )
+                row["plain_ms"] = time_ms(
+                    lambda: decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, offset, N_HEAD), 20
+                )
+                # SDPA over the same cached prefix (the attention only: it
+                # does not write the cache)
+                qh = q.view(b, 1, N_HEAD, dh).transpose(1, 2)
+                kh = kc[:, : off + 1].view(b, off + 1, N_HEAD, dh).transpose(1, 2)
+                vh = vc[:, : off + 1].view(b, off + 1, N_HEAD, dh).transpose(1, 2)
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=dh ** -0.25), 200, 10
+                )
+                item = q.element_size()
+                # the K/V prefix read once, the new token's q/k/v read, the
+                # output and the new K/V row written
+                nbytes = item * b * D_MODEL * (2 * off + 3 + 3)
+                row["bound_ms"], row["bound_by"] = bound(4.0 * b * D_MODEL * (off + 1), nbytes,
+                                                         dtype_name)
+                if dtype_name == "bfloat16":
+                    results[b] = row
+            rows.append(row)
+    emit({"phase": "decode_attn", "cases": rows})
+    return results[8], results[BATCH * BEAM]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.ops import cuda_build, decode_attn, flash64
+    from whisper_flamingo_tpu_torch.tokenizer import get_tokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # -- 1. device and build ---------------------------------------------------
+    smi = smi_line()
+    t0 = time.perf_counter()
+    libs = cuda_build.build_all()
+    emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
+          "libraries": [os.path.relpath(p, ROOT) for p in libs]})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # -- 2, 3. kernels against their plain versions ---------------------------
+    fl = phase_flash64(torch, flash64, gen)
+    da8, da120 = phase_decode_attn(torch, decode_attn, gen)
+
+    # -- 4. end to end ----------------------------------------------------------
+    eot = get_tokenizer(True, language="en", task="transcribe").eot
+    rng = np.random.default_rng(0)
+    audio = rng.standard_normal((BATCH, 480_000)).astype(np.float32) * 0.05
+    mel = wt.log_mel_spectrogram(audio, device="cuda")
+    mel_cpu = wt.log_mel_spectrogram(audio, device="cpu")
+    mel_err = max_err(mel.cpu(), mel_cpu)
+    if tuple(mel.shape) != (BATCH, 80, 3000) or mel_err > 1e-4:
+        raise AssertionError(f"log-mel on the card: shape {tuple(mel.shape)}, |err| {mel_err}")
+
+    n_steps = SAMPLE_LEN - 1  # incremental steps after the prefill
+
+    def options(fp16, beam):
+        return wt.DecodingOptions(
+            language="en", without_timestamps=True, sample_len=SAMPLE_LEN, fp16=fp16,
+            beam_size=beam, suppress_tokens=f"-1,{eot}",
+        )
+
+    def counted_run(task, xt=None):
+        flash64.flash64_attention.launches = 0
+        decode_attn.fused_step.launches = 0
+        results = task.run(mel, xt=xt)
+        torch.cuda.synchronize()
+        counts = (flash64.flash64_attention.launches, decode_attn.fused_step.launches)
+        n_layers = task.model.dims.n_text_layer
+        want = (task.model.dims.n_audio_layer, n_layers * n_steps)
+        if counts != want:
+            raise AssertionError(f"kernel launches {counts}, expected {want}")
+        for r in results:
+            if len(r.tokens) != SAMPLE_LEN or not np.isfinite(r.avg_logprob):
+                raise AssertionError(f"bad result: {len(r.tokens)} tokens, {r.avg_logprob}")
+        return results, counts
+
+    def timed(task, iters, xt=None):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            results = task.run(mel, xt=xt)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        assert all(len(r.tokens) == SAMPLE_LEN for r in results)
+        return {"rtf": iters * BATCH * 30.0 / elapsed,
+                "tok_s": iters * BATCH * SAMPLE_LEN / elapsed,
+                "s_per_batch": elapsed / iters, "iters": iters}
+
+    model = wt.load_model("small", device="cuda", seed=0)
+
+    # fp32 greedy: through the kernels, then through the plain versions
+    task = wt.DecodingTask(model, options(False, None))
+    kernel_res, _ = counted_run(task)
+    saved = flash64.flash64_attention, decode_attn.fused_step
+
+    def plain_step(q, k_raw, v_raw, k_cache, v_cache, offset, n_head):
+        return decode_attn.fused_step_plain(q, k_raw, v_raw, k_cache, v_cache, offset,
+                                            n_head), k_cache, v_cache
+
+    flash64.flash64_attention = flash64.flash64_attention_plain
+    decode_attn.fused_step = plain_step
+    try:
+        plain_res = wt.DecodingTask(model, options(False, None)).run(mel)
+    finally:
+        flash64.flash64_attention, decode_attn.fused_step = saved
+    same = [k.tokens == p.tokens for k, p in zip(kernel_res, plain_res)]
+    lp_diff = max(abs(k.avg_logprob - p.avg_logprob) for k, p in zip(kernel_res, plain_res))
+    emit({"phase": "fp32_greedy_kernel_vs_plain", "tokens_equal": same,
+          "avg_logprob_max_diff": lp_diff, "mel_max_abs_err_vs_cpu": mel_err})
+    if not all(same):
+        raise AssertionError("fp32 greedy: kernel tokens differ from plain tokens")
+
+    # bf16 greedy and beam 15
+    runs = {}
+    for name, beam, iters in (("greedy", None, 3), ("beam15", BEAM, 2)):
+        task = wt.DecodingTask(model, options(True, beam))
+        _, counts = counted_run(task)
+        runs[name] = dict(timed(task, iters), flash64_launches=counts[0],
+                          decode_attn_launches=counts[1])
+        emit({"phase": f"bf16_{name}_small_b{BATCH}", **runs[name]})
+    del model, task
+    torch.cuda.empty_cache()
+
+    # the small Whisper-Flamingo: one conditioning stream, gates opened to 1
+    fmodel = wt.load_model("small", device="cuda", seed=0, add_gated_x_attn=1,
+                           num_langs=1, bert_dim=768)
+    with torch.no_grad():
+        for blk in fmodel.decoder.blocks:
+            blk.ff_gate.fill_(1.0)
+            for sub in blk.gated_x_attn_layers:
+                sub.attn_gate.fill_(1.0)
+    xt = torch.from_numpy(rng.standard_normal((1, BATCH, 64, 768)).astype(np.float32)).cuda()
+    task = wt.DecodingTask(fmodel, options(True, BEAM))
+    _, counts = counted_run(task, xt)
+    runs["flamingo_beam15"] = dict(timed(task, 2, xt), flash64_launches=counts[0],
+                                   decode_attn_launches=counts[1])
+    emit({"phase": f"bf16_flamingo_beam15_small_b{BATCH}", **runs["flamingo_beam15"]})
+
+    def entry(name, source, replaces, launches, row):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+    kernels = [
+        entry("flash64_fwd", "whisper_flamingo_tpu_torch/csrc/flash64_fwd.cu",
+              "whisper_flamingo_tpu/ops/flash64.py:75", runs["greedy"]["flash64_launches"], fl),
+        entry("decode_attn", "whisper_flamingo_tpu_torch/csrc/decode_attn.cu",
+              "whisper_flamingo_tpu/ops/decode_attn.py:153",
+              runs["greedy"]["decode_attn_launches"], da8),
+        entry("decode_attn_rows120", "whisper_flamingo_tpu_torch/csrc/decode_attn.cu",
+              "whisper_flamingo_tpu/ops/decode_attn.py:211",
+              runs["beam15"]["decode_attn_launches"], da120),
+    ]
+    emit({"phase": "summary", "total_s": time.perf_counter() - t_start})
+    print(smi_line(), flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

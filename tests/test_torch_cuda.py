@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip without a GPU (decided in a fixture, never at
+import) and run on the card with
+
+    python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances as in ``chip_smoke.py``: fp32 1e-5 (sums in another order),
+bf16 1e-2 / 2e-2 (a few bf16 ulps of outputs of order 1); the updated
+caches must be bit-equal (the same one multiplication per element).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from whisper_flamingo_tpu_torch.ops import decode_attn, flash64
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 63, 300, 1500])
+def test_flash64_kernel_matches_plain(gen, dtype, t):
+    q, k, v = (torch.randn(2, 3, t, 64, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    before = flash64.flash64_attention.launches
+    out = flash64.flash64_attention(q, k, v)
+    assert flash64.flash64_attention.launches == before + 1
+    ref = flash64.flash64_attention_plain(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_flash64_kernel_takes_head_split_views(gen):
+    """The encoder's layout: head-split views of (B, T, H*64) tensors."""
+    x = [torch.randn(2, 100, 4 * 64, generator=gen, device="cuda") for _ in range(3)]
+    views = [a.view(2, 100, 4, 64).transpose(1, 2) for a in x]
+    out = flash64.flash64_attention(*views)
+    ref = flash64.flash64_attention_plain(*(a.contiguous() for a in views))
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,per_row", [(3, False), (3, True), (40, False)])
+def test_decode_attn_kernel_matches_plain(gen, dtype, rows, per_row):
+    t_max, d, n_head = 40, 256, 4
+    q, kn, vn = (torch.randn(rows, 1, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    kc = torch.randn(rows, t_max, d, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(rows, t_max, d, generator=gen, device="cuda").to(dtype)
+    if per_row:
+        offsets = [torch.randint(0, t_max, (rows,), generator=gen, device="cuda", dtype=torch.int32)]
+    else:
+        offsets = [0, 17, t_max - 1, torch.tensor([9], dtype=torch.int32, device="cuda")]
+    for off in offsets:
+        kc2, vc2 = kc.clone(), vc.clone()
+        out, k_out, v_out = decode_attn.fused_step(q, kn, vn, kc, vc, off, n_head)
+        assert k_out is kc and v_out is vc
+        ref = decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, off, n_head)
+        assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+        assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+def test_decode_attn_kernel_refuses_what_it_cannot_take(gen):
+    q = torch.randn(2, 1, 96, generator=gen, device="cuda")
+    kc = torch.zeros(2, 8, 96, device="cuda")
+    with pytest.raises(ValueError):  # d_head 48
+        decode_attn.fused_step(q, q, q, kc, kc.clone(), 0, 2)
+    q = torch.randn(2, 1, 64, generator=gen, device="cuda")
+    kc = torch.zeros(2, 8, 64, device="cuda")
+    with pytest.raises(ValueError):  # offset past the cache
+        decode_attn.fused_step(q, q, q, kc, kc.clone(), 8, 1)
+    with pytest.raises(TypeError):  # mixed dtypes
+        decode_attn.fused_step(q.bfloat16(), q, q, kc, kc.clone(), 0, 1)
+
+
+def test_debug_decode_kernel_tokens_equal_plain(gen, monkeypatch):
+    """fp32 greedy and beam at debug dims with d_head 64: tokens through the
+    kernels equal tokens through the plain versions, on the card."""
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.models.dims import ModelDimensions
+
+    dims = ModelDimensions(
+        n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+        n_vocab=51865, n_text_ctx=448, n_text_head=2, n_text_state=128, n_text_layer=2,
+    )
+    model = wt.init_params(torch.Generator(device="cuda").manual_seed(1), dims, device="cuda")
+    mel = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, 80, 3000)).astype(np.float32) * 0.5
+    ).cuda()
+    for beam in (None, 3):
+        opts = wt.DecodingOptions(language="en", fp16=False, sample_len=12, beam_size=beam)
+        got = wt.DecodingTask(model, opts).run(mel)
+        with monkeypatch.context() as m:
+            m.setattr(flash64, "flash64_attention", flash64.flash64_attention_plain)
+            m.setattr(decode_attn, "fused_step", lambda *a: (decode_attn.fused_step_plain(*a), a[3], a[4]))
+            ref = wt.DecodingTask(model, opts).run(mel)
+        assert [g.tokens for g in got] == [r.tokens for r in ref]

@@ -1,0 +1,81 @@
+"""The port's boundaries: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller names the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = """
+import sys
+import whisper_flamingo_tpu_torch
+import whisper_flamingo_tpu_torch.convert, whisper_flamingo_tpu_torch.training.checkpoints
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.")
+       or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")]
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_name_no_jax_module():
+    """No source file of the port imports JAX or the JAX package (the
+    package name is a prefix of the port's: match module names exactly)."""
+    pkg = os.path.join(ROOT, "whisper_flamingo_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, f)) as fh:
+                for line in fh:
+                    words = line.split()
+                    if words[:1] not in (["import"], ["from"]) or len(words) < 2:
+                        continue
+                    mod = words[1].rstrip(",")
+                    assert not (mod == "jax" or mod.startswith("jax.")), (f, line)
+                    assert not (mod == "whisper_flamingo_tpu"
+                                or mod.startswith("whisper_flamingo_tpu.")), (f, line)
+
+
+def test_entry_points_need_a_device_without_cuda(monkeypatch):
+    """With no card and no device named, the entry points raise instead of
+    running on the CPU; naming the CPU works."""
+    import numpy as np
+
+    import whisper_flamingo_tpu_torch as wt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        wt.load_model("debug")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        wt.log_mel_spectrogram(np.zeros(16000, np.float32))
+    model = wt.load_model("debug", device="cpu")
+    assert model.device.type == "cpu"
+    assert wt.log_mel_spectrogram(np.zeros(16000, np.float32), device="cpu").shape == (80, 100)
+
+
+def test_kernel_wrappers_raise_on_a_device_without_a_kernel():
+    """A wrapper takes its plain version only for CPU tensors: a tensor on
+    any other device without a kernel raises."""
+    from whisper_flamingo_tpu_torch.ops import decode_attn, flash64
+
+    q = torch.empty(1, 2, 10, 32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        flash64.flash64_attention(q, q, q)
+    qd = torch.empty(2, 1, 64, device="meta")
+    kc = torch.empty(2, 8, 64, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        decode_attn.fused_step(qd, qd, qd, kc, kc, 0, 1)

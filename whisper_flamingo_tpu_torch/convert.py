@@ -1,0 +1,92 @@
+"""Weights from the JAX package's parameter layout into the port's.
+
+:func:`params_from_jax` is the counterpart of the JAX package's
+``training/checkpoints.py`` ``load_torch_state`` / ``to_torch_state_dict``:
+it takes the JAX parameter pytree as nested dicts of **numpy** arrays
+(layers stacked on a leading axis, linears (in, out), convs (k, in, out),
+gated sub-blocks stacked (layer, lang)) and returns the port's state dict
+(OpenAI key names, torch layouts), so both packages compute one function.
+It imports nothing of JAX: convert the pytree with
+``jax.tree.map(np.asarray, params)`` first.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .models.dims import ModelDimensions
+from .models.whisper import ModelExtras
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32))
+
+
+def params_from_jax(
+    tree: Mapping[str, Any], dims: ModelDimensions, extras: ModelExtras = ModelExtras()
+) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    enc, dec = tree["encoder"], tree["decoder"]
+    if bool(extras.add_gated_x_attn) != ("gated" in dec["blocks"]):
+        raise ValueError("extras.add_gated_x_attn does not match the tree's gated blocks")
+
+    for name in ("conv1", "conv2"):
+        out[f"encoder.{name}.weight"] = _t(np.asarray(enc[name]["w"]).transpose(2, 1, 0))
+        out[f"encoder.{name}.bias"] = _t(enc[name]["b"])
+    out["encoder.ln_post.weight"] = _t(enc["ln_post"]["scale"])
+    out["encoder.ln_post.bias"] = _t(enc["ln_post"]["bias"])
+    out["decoder.token_embedding.weight"] = _t(dec["token_embedding"])
+    out["decoder.positional_embedding"] = _t(dec["pos_embedding"])
+    out["decoder.ln.weight"] = _t(dec["ln"]["scale"])
+    out["decoder.ln.bias"] = _t(dec["ln"]["bias"])
+    if "xt_projection" in dec:
+        out["decoder.xt_projection.weight"] = _t(np.asarray(dec["xt_projection"]["w"]).T)
+        out["decoder.xt_projection.bias"] = _t(dec["xt_projection"]["b"])
+
+    def sel(a, idx):
+        return np.asarray(a)[idx]
+
+    def attn(prefix: str, tree_: Mapping[str, Any], idx) -> None:
+        for tk, ours in (("query", "q"), ("key", "k"), ("value", "v"), ("out", "out")):
+            out[f"{prefix}.{tk}.weight"] = _t(sel(tree_[ours]["w"], idx).T)
+            if "b" in tree_[ours] and tk != "key":
+                out[f"{prefix}.{tk}.bias"] = _t(sel(tree_[ours]["b"], idx))
+
+    def ln(prefix: str, tree_: Mapping[str, Any], idx) -> None:
+        out[f"{prefix}.weight"] = _t(sel(tree_["scale"], idx))
+        out[f"{prefix}.bias"] = _t(sel(tree_["bias"], idx))
+
+    def mlp(prefix: str, tree_: Mapping[str, Any], i: int) -> None:
+        out[f"{prefix}.0.weight"] = _t(sel(tree_["fc1"]["w"], i).T)
+        out[f"{prefix}.0.bias"] = _t(sel(tree_["fc1"]["b"], i))
+        out[f"{prefix}.2.weight"] = _t(sel(tree_["fc2"]["w"], i).T)
+        out[f"{prefix}.2.bias"] = _t(sel(tree_["fc2"]["b"], i))
+
+    def blocks(side: str, tree_: Mapping[str, Any], n_layer: int, cross: bool) -> None:
+        for i in range(n_layer):
+            p = f"{side}.blocks.{i}"
+            attn(f"{p}.attn", tree_["attn"], i)
+            ln(f"{p}.attn_ln", tree_["attn_ln"], i)
+            if cross:
+                attn(f"{p}.cross_attn", tree_["cross_attn"], i)
+                ln(f"{p}.cross_attn_ln", tree_["cross_attn_ln"], i)
+            mlp(f"{p}.mlp", tree_["mlp"], i)
+            ln(f"{p}.mlp_ln", tree_["mlp_ln"], i)
+            if "gated" in tree_:
+                g = tree_["gated"]
+                n_langs = np.asarray(g["langs"]["attn_gate"]).shape[1]
+                for j in range(n_langs):
+                    gp = f"{p}.gated_x_attn_layers.{j}"
+                    attn(f"{gp}.attn", g["langs"]["attn"], (i, j))
+                    ln(f"{gp}.attn_ln", g["langs"]["attn_ln"], (i, j))
+                    out[f"{gp}.attn_gate"] = _t(sel(g["langs"]["attn_gate"], (i, j))).reshape(1)
+                ln(f"{p}.ff_ln", g["ff_ln"], i)
+                mlp(f"{p}.ff", g["ff"], i)
+                out[f"{p}.ff_gate"] = _t(sel(g["ff_gate"], i)).reshape(1)
+
+    blocks("encoder", enc["blocks"], dims.n_audio_layer, cross=False)
+    blocks("decoder", dec["blocks"], dims.n_text_layer, cross=True)
+    return out

@@ -1,0 +1,587 @@
+"""Whisper encoder/decoder with Flamingo-style gated cross-attention, in
+PyTorch.
+
+Port of ``whisper_flamingo_tpu/models/whisper.py``. The parameters are an
+``nn.Module`` tree with the OpenAI state-dict key names (and the
+Whisper-Flamingo fork's ``gated_x_attn_layers`` / ``ff`` / ``ff_gate`` /
+``xt_projection`` keys), so an OpenAI ``.pt`` loads with
+``load_state_dict(strict=False)``. The compute is plain functions over
+that tree and tensors, with the JAX package's names and numerics:
+
+- LayerNorm is an fp32 island; GELU is the exact erf form;
+- attention scales q and k by d_head^-0.25, logits and softmax in fp32;
+- the encoder's self-attention at d_head 64 runs the flash64 kernel;
+- the decoder runs teacher-forced (no cache), prefill (writes the cache)
+  and incremental (one token, through the decode-attention kernel);
+- gated x-attn runs before self-attention, parallel or sequential over the
+  stacked (n_langs, B, S, D) conditioning streams;
+- the tied-embedding logits are a float32 matmul of the compute-dtype
+  operands (so bf16 inputs give JAX's bf16-inputs / fp32-accumulate
+  product).
+
+Layers are a ``ModuleList`` looped in Python (the JAX package stacked them
+for ``lax.scan``). The decode caches are dicts of stacked tensors:
+``k``/``v`` (L, B, T, D) unsplit, written in place; ``xa_k``/``xa_v``
+(L, B, H, Ta, Dh) and ``xt_k``/``xt_v`` (L, n_langs, B, H, S, Dh)
+head-split, K pre-scaled. The static K slabs are stored as float32
+holding the compute-dtype values, so the per-step cross-attention logits
+are fp32 without an upcast each step.
+
+Left out, each a TPU workaround or a later slice: ``CACHE_LOOP`` and
+``SELECTOR_SELF``, the in-loop one-hot beam reorder (``row_perm``; the
+decode loop reorders the self cache with ``index_select``), the
+transposed (B, H, Dh, T) slabs, the fused QKV projection, the int8 serving
+modes (``quantize_decode_params``), the streaming decode MLP kernel,
+``return_cross_qk`` (word timing), rematerialization and the legacy
+keyword conditioning (``embed_tokens_as_xt``).
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import decode_attn
+from ..ops.attention import (
+    cached_causal_mask,
+    cached_qkv_attention,
+    causal_mask,
+    head_split_kv,
+    qkv_attention,
+    update_cache,
+    xa_qkv_attention,
+)
+from ..utils import resolve_device
+from .dims import ModelDimensions
+
+Cache = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameter containers with the OpenAI key names)
+# ---------------------------------------------------------------------------
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, n_state: int):
+        super().__init__()
+        self.query = nn.Linear(n_state, n_state)
+        self.key = nn.Linear(n_state, n_state, bias=False)
+        self.value = nn.Linear(n_state, n_state)
+        self.out = nn.Linear(n_state, n_state)
+
+
+def _mlp(n_state: int) -> nn.Sequential:
+    return nn.Sequential(nn.Linear(n_state, 4 * n_state), nn.GELU(), nn.Linear(4 * n_state, n_state))
+
+
+class GatedXAttnSubBlock(nn.Module):
+    """One conditioning stream's gated cross-attention (gate starts at 0)."""
+
+    def __init__(self, n_state: int):
+        super().__init__()
+        self.attn = MultiHeadAttention(n_state)
+        self.attn_ln = nn.LayerNorm(n_state)
+        self.attn_gate = nn.Parameter(torch.zeros(1))
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, n_state: int, cross_attention: bool = False, n_gated: int = 0):
+        super().__init__()
+        self.attn = MultiHeadAttention(n_state)
+        self.attn_ln = nn.LayerNorm(n_state)
+        if cross_attention:
+            self.cross_attn = MultiHeadAttention(n_state)
+            self.cross_attn_ln = nn.LayerNorm(n_state)
+        self.mlp = _mlp(n_state)
+        self.mlp_ln = nn.LayerNorm(n_state)
+        if n_gated:
+            self.gated_x_attn_layers = nn.ModuleList(
+                GatedXAttnSubBlock(n_state) for _ in range(n_gated)
+            )
+            self.ff_ln = nn.LayerNorm(n_state)
+            self.ff = _mlp(n_state)
+            self.ff_gate = nn.Parameter(torch.zeros(1))
+
+    @property
+    def gated(self) -> bool:
+        return hasattr(self, "gated_x_attn_layers")
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, dims: ModelDimensions):
+        super().__init__()
+        d = dims.n_audio_state
+        self.conv1 = nn.Conv1d(dims.n_mels, d, kernel_size=3, padding=1)
+        self.conv2 = nn.Conv1d(d, d, kernel_size=3, stride=2, padding=1)
+        # recomputed, never loaded: a checkpoint's fp16 copy would round it
+        self.register_buffer(
+            "positional_embedding",
+            torch.from_numpy(sinusoids(dims.n_audio_ctx, d)), persistent=False,
+        )
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d) for _ in range(dims.n_audio_layer)
+        )
+        self.ln_post = nn.LayerNorm(d)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, dims: ModelDimensions, extras: "ModelExtras"):
+        super().__init__()
+        d = dims.n_text_state
+        n_gated = max(extras.num_langs, 1) if extras.add_gated_x_attn else 0
+        self.token_embedding = nn.Embedding(dims.n_vocab, d)
+        self.positional_embedding = nn.Parameter(torch.empty(dims.n_text_ctx, d))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, cross_attention=True, n_gated=n_gated)
+            for _ in range(dims.n_text_layer)
+        )
+        self.ln = nn.LayerNorm(d)
+        if extras.add_gated_x_attn and extras.bert_dim != d:
+            self.xt_projection = nn.Linear(extras.bert_dim, d)
+
+
+@dataclass(frozen=True)
+class ModelExtras:
+    """Fork model-surgery flags (same fields as the JAX package)."""
+
+    dropout_rate: float = 0.0
+    add_adapter: bool = False  # accepted for config parity; inert
+    adapter_dim: int = 256
+    add_gated_x_attn: int = 0
+    bert_dim: int = 768
+    num_langs: int = 0
+    # False: parallel deltas over the streams; True: sequential (legacy)
+    sequential_gated_x_attn: bool = False
+
+
+class Whisper(nn.Module):
+    """The model handle: dims, surgery flags, compute dtype and the
+    parameter tree (``encoder``, ``decoder``). The compute functions below
+    take it as ``params``."""
+
+    def __init__(
+        self, dims: ModelDimensions, extras: ModelExtras = ModelExtras(),
+        dtype: torch.dtype = torch.float32,
+        alignment_heads: Optional[np.ndarray] = None,
+    ):
+        super().__init__()
+        self.dims = dims
+        self.extras = extras
+        self.dtype = dtype
+        self.alignment_heads = alignment_heads
+        self.encoder = AudioEncoder(dims)
+        self.decoder = TextDecoder(dims, extras)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.token_embedding.weight.device
+
+    @property
+    def is_multilingual(self) -> bool:
+        return self.dims.is_multilingual
+
+    @property
+    def num_languages(self) -> int:
+        return self.dims.num_languages
+
+    @torch.no_grad()
+    def embed_audio(self, mel: torch.Tensor) -> torch.Tensor:
+        return encoder_apply(self, self.dims, mel, dtype=self.dtype)
+
+    @torch.no_grad()
+    def logits(self, tokens: torch.Tensor, audio_features: torch.Tensor) -> torch.Tensor:
+        return decoder_apply(self, self.dims, tokens, audio_features, dtype=self.dtype)[0]
+
+    @torch.no_grad()
+    def forward(self, mel: torch.Tensor, tokens: torch.Tensor, xt=None) -> torch.Tensor:
+        feats = self.embed_audio(mel)
+        return decoder_apply(self, self.dims, tokens, feats, xt=xt, dtype=self.dtype)[0]
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers (plain functions over modules and tensors)
+# ---------------------------------------------------------------------------
+
+def layer_norm(p: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 LayerNorm island: statistics, scale and shift in fp32, rounded
+    once to x's dtype. PyTorch's kernel computes a bf16 input with bf16
+    weights in fp32 internally, so weights already in x's dtype (the decode
+    copy) take one launch; others (fp32 masters) are upcast with x."""
+    if p.weight.dtype == x.dtype:
+        return F.layer_norm(x, x.shape[-1:], p.weight, p.bias, eps)
+    y = F.layer_norm(x.float(), x.shape[-1:], p.weight.float(), p.bias.float(), eps)
+    return y.to(x.dtype)
+
+
+def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """Dense layer with the weights cast to the activation dtype."""
+    b = None if p.bias is None else p.bias.to(x.dtype)
+    return F.linear(x, p.weight.to(x.dtype), b)
+
+
+def conv1d(p: nn.Conv1d, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """1-D conv over time, (B, C, T) layout, padding 1."""
+    return F.conv1d(x, p.weight.to(x.dtype), p.bias.to(x.dtype), stride=stride, padding=1)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x)  # exact erf form
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000) -> np.ndarray:
+    """Sinusoidal position embeddings, (length, channels) float32."""
+    assert channels % 2 == 0
+    log_timescale_increment = math.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(np.float32)
+
+
+def attention_block(
+    p: MultiHeadAttention, x: torch.Tensor, n_head: int,
+    kv_src: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+    k_override: Optional[torch.Tensor] = None, v_override: Optional[torch.Tensor] = None,
+    backend: str = "plain",
+) -> torch.Tensor:
+    """Projected multi-head attention. ``kv_src`` selects cross-attention;
+    ``k_override``/``v_override`` are cached head-split (B, H, T, Dh) slabs
+    with K pre-scaled.
+
+    Beam grouping: when the slab batch is smaller than the query batch
+    (beam search shares one audio stream across ``G`` beams) the beam axis
+    folds into the query-length axis, so the shared slab is read once per
+    audio instead of once per beam."""
+    q = linear(p.query, x)
+    if k_override is not None:
+        bq, t, d = q.shape
+        b = k_override.shape[0]
+        if b != bq:
+            out = xa_qkv_attention(q.reshape(b, (bq // b) * t, d), k_override, v_override, n_head)
+            out = out.reshape(bq, t, d)
+        else:
+            out = xa_qkv_attention(q, k_override, v_override, n_head)
+        return linear(p.out, out)
+    src = x if kv_src is None else kv_src
+    k = linear(p.key, src)
+    v = linear(p.value, src)
+    return linear(p.out, qkv_attention(q, k, v, n_head, mask=mask, backend=backend))
+
+
+def mlp_block(p: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    return linear(p[2], gelu(linear(p[0], x)))
+
+
+def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(g.to(x.dtype))
+
+
+def gated_x_attn(
+    p: ResidualAttentionBlock, x: torch.Tensor, xt: torch.Tensor, n_head: int,
+    sequential: bool = False,
+) -> torch.Tensor:
+    """Flamingo gated conditioning over the stacked streams ``xt``
+    (n_langs, B, S, D); returns the updated x.
+
+    Parallel (default): each stream's sub-block attends from LN(x) of the
+    block input and contributes ``attn_out * tanh(gate)``; the deltas sum
+    into x. Sequential: each stream's delta lands before the next stream
+    attends. Both end with the shared tanh-gated FFN."""
+    x_origin = x
+    total_delta = torch.zeros_like(x)
+    for i in range(xt.shape[0]):
+        sub = p.gated_x_attn_layers[i]
+        src = x if sequential else x_origin
+        attn_out = attention_block(sub.attn, layer_norm(sub.attn_ln, src), n_head, kv_src=xt[i])
+        if sequential:
+            x = x + attn_out * _gate(sub.attn_gate, x)
+        else:
+            total_delta = total_delta + attn_out * _gate(sub.attn_gate, x)
+    if not sequential:
+        x = x_origin + total_delta
+    return _gated_ff_only(p, x)
+
+
+def _gated_ff_only(p: ResidualAttentionBlock, x: torch.Tensor) -> torch.Tensor:
+    """The gated block's shared FFN (all a gated block does with no stream)."""
+    return x + mlp_block(p.ff, layer_norm(p.ff_ln, x)) * _gate(p.ff_gate, x)
+
+
+def _gated_x_attn_cached(
+    p: ResidualAttentionBlock, x: torch.Tensor, xt_k: torch.Tensor, xt_v: torch.Tensor,
+    n_head: int, sequential: bool = False,
+) -> torch.Tensor:
+    """Gated x-attn over precomputed per-stream K/V (n_langs, B, H, S, Dh)."""
+    x_origin = x
+    total_delta = torch.zeros_like(x)
+    for i in range(xt_k.shape[0]):
+        sub = p.gated_x_attn_layers[i]
+        src = x if sequential else x_origin
+        attn_out = attention_block(
+            sub.attn, layer_norm(sub.attn_ln, src), n_head,
+            k_override=xt_k[i], v_override=xt_v[i],
+        )
+        if sequential:
+            x = x + attn_out * _gate(sub.attn_gate, x)
+        else:
+            total_delta = total_delta + attn_out * _gate(sub.attn_gate, x)
+    if not sequential:
+        x = x_origin + total_delta
+    return _gated_ff_only(p, x)
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def encoder_apply(
+    params: Whisper, dims: ModelDimensions, mel: torch.Tensor, *,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """mel (B, n_mels, T) -> audio features (B, min(T // 2, n_audio_ctx), D).
+
+    Conv stack with GELU, sinusoidal positions cropped at ``n_audio_ctx``,
+    pre-LN blocks whose self-attention goes through the flash64 kernel at
+    d_head 64, final LN."""
+    enc = params.encoder
+    x = gelu(conv1d(enc.conv1, mel.to(dtype), stride=1))
+    x = gelu(conv1d(enc.conv2, x, stride=2)).transpose(1, 2)  # (B, T, D)
+    x = x[:, : dims.n_audio_ctx]
+    x = (x + enc.positional_embedding[: x.shape[1]]).to(dtype)
+    n_head = dims.n_audio_head
+    for blk in enc.blocks:
+        x = x + attention_block(blk.attn, layer_norm(blk.attn_ln, x), n_head, backend="flash")
+        x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+    return layer_norm(enc.ln_post, x)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+def _prepare_xt(params: Whisper, dims: ModelDimensions, xt: torch.Tensor, dtype) -> torch.Tensor:
+    """Project the conditioning streams (n_langs, B, S, bert_dim) to the
+    model width (``xt_projection`` when the widths differ) and add the
+    decoder's learned positions over the stream length."""
+    dec = params.decoder
+    if xt.shape[2] > dims.n_text_ctx:
+        raise ValueError(
+            f"conditioning stream length {xt.shape[2]} exceeds n_text_ctx="
+            f"{dims.n_text_ctx}: the stream takes the decoder positional "
+            "embedding, which caps its length"
+        )
+    xt = xt.to(dtype)
+    if xt.shape[-1] != dims.n_text_state:
+        xt = linear(dec.xt_projection, xt)
+    return xt + dec.positional_embedding[: xt.shape[2]].to(dtype)
+
+
+@torch.no_grad()
+def init_cache(
+    params: Whisper, dims: ModelDimensions, audio_features: torch.Tensor, *,
+    xt: Optional[torch.Tensor] = None, max_len: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
+) -> Cache:
+    """Preallocate the decode cache and precompute all static K/V.
+
+    The audio cross-attention K/V (and, with conditioning streams, the
+    gated x-attn K/V) depend only on the encoder output and the streams, so
+    they are computed once here. The self cache is zeros (L, B, T, D) with
+    T = ``max_len`` (default ``n_text_ctx``)."""
+    dec = params.decoder
+    L, D, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
+    B = audio_features.shape[0]
+    T = max_len or dims.n_text_ctx
+    scale = (D // H) ** -0.25
+    dev = audio_features.device
+    xa = audio_features.to(dtype)
+    kdt = torch.float32  # static K slabs: compute-dtype values in fp32
+    ta, dh = xa.shape[1], D // H
+    cache: Cache = {
+        "k": torch.zeros((L, B, T, D), dtype=dtype, device=dev),
+        "v": torch.zeros((L, B, T, D), dtype=dtype, device=dev),
+        "xa_k": torch.empty((L, B, H, ta, dh), dtype=kdt, device=dev),
+        "xa_v": torch.empty((L, B, H, ta, dh), dtype=dtype, device=dev),
+    }
+    for l, blk in enumerate(dec.blocks):
+        cache["xa_k"][l] = head_split_kv(linear(blk.cross_attn.key, xa), H) * scale
+        cache["xa_v"][l] = head_split_kv(linear(blk.cross_attn.value, xa), H)
+    if xt is not None and dec.blocks[0].gated:
+        xt_p = _prepare_xt(params, dims, xt, dtype)  # (n_langs, B, S, D)
+        n_langs, _, s, _ = xt_p.shape
+        cache["xt_k"] = torch.empty((L, n_langs, B, H, s, dh), dtype=kdt, device=dev)
+        cache["xt_v"] = torch.empty((L, n_langs, B, H, s, dh), dtype=dtype, device=dev)
+        for l, blk in enumerate(dec.blocks):
+            for i in range(n_langs):
+                attn = blk.gated_x_attn_layers[i].attn
+                cache["xt_k"][l, i] = head_split_kv(linear(attn.key, xt_p[i]), H) * scale
+                cache["xt_v"][l, i] = head_split_kv(linear(attn.value, xt_p[i]), H)
+        cache["xt"] = xt_p
+    return cache
+
+
+def lm_head_weight(params: Whisper, dtype: torch.dtype) -> torch.Tensor:
+    """The tied embedding as the logits matmul's float32 operand: its
+    ``dtype`` values, upcast (cached by :func:`prepare_decode_params`)."""
+    dec = params.decoder
+    cached = getattr(dec, "lm_head_f32", None)
+    if cached is not None:
+        return cached
+    return dec.token_embedding.weight.to(dtype).float()
+
+
+@torch.no_grad()
+def decoder_apply(
+    params: Whisper, dims: ModelDimensions, tokens: torch.Tensor,
+    audio_features: Optional[torch.Tensor] = None, *,
+    xt: Optional[torch.Tensor] = None, cache: Optional[Cache] = None,
+    offset: Union[int, torch.Tensor] = 0, dtype: torch.dtype = torch.float32,
+    sequential_xt: bool = False,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """tokens (B, T) [+ audio features (B, Ta, D)] -> (fp32 logits (B, T, V), cache).
+
+    Without ``cache``: teacher-forced (full causal mask, cross-attention
+    projected from ``audio_features`` in every layer). With ``cache``: the
+    decode path; the chunk's self K/V are written at ``offset`` (an int,
+    or a (B,) tensor of per-row offsets) IN PLACE, and attention uses the
+    precomputed audio / conditioning K/V. A one-token chunk (an
+    incremental step) goes through the decode-attention kernel
+    (:func:`..ops.decode_attn.fused_step`); a longer one (the prefill)
+    through the plain cache write and attention.
+
+    A gated model run without streams applies only the gated blocks'
+    shared FFN (zero attention delta)."""
+    dec = params.decoder
+    n_head = dims.n_text_head
+    T = tokens.shape[-1]
+    dev = tokens.device
+
+    pe = dec.positional_embedding
+    if isinstance(offset, torch.Tensor) and offset.dim() == 1:
+        pos = pe[offset.long()[:, None] + torch.arange(T, device=dev)[None]]
+    else:
+        pos = pe[int(offset): int(offset) + T]
+    x = (dec.token_embedding.weight[tokens] + pos).to(dtype)
+
+    use_gated = dec.blocks[0].gated
+    if cache is None:
+        xt_p = _prepare_xt(params, dims, xt, dtype) if (use_gated and xt is not None) else None
+        mask = causal_mask(T, device=dev)
+        xa = audio_features.to(dtype)
+        for blk in dec.blocks:
+            if xt_p is not None:
+                x = gated_x_attn(blk, x, xt_p, n_head, sequential=sequential_xt)
+            elif use_gated:
+                x = _gated_ff_only(blk, x)
+            x = x + attention_block(blk.attn, layer_norm(blk.attn_ln, x), n_head, mask=mask)
+            x = x + attention_block(
+                blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head, kv_src=xa
+            )
+            x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+    else:
+        scale = (dims.n_text_state // n_head) ** -0.25
+        have_xt_kv = use_gated and "xt_k" in cache
+        incremental = T == 1
+        if incremental and isinstance(offset, int):
+            # one device offset shared by every layer's kernel call
+            offset = torch.full((1,), offset, dtype=torch.int32, device=dev)
+        mask = None if incremental else cached_causal_mask(
+            T, cache["k"].shape[-2], offset, device=dev
+        )
+        for l, blk in enumerate(dec.blocks):
+            if have_xt_kv:
+                x = _gated_x_attn_cached(
+                    blk, x, cache["xt_k"][l], cache["xt_v"][l], n_head, sequential=sequential_xt
+                )
+            elif use_gated:
+                x = _gated_ff_only(blk, x)
+            ap = blk.attn
+            x_ln = layer_norm(blk.attn_ln, x)
+            q = linear(ap.query, x_ln)
+            k_raw = linear(ap.key, x_ln)
+            v_raw = linear(ap.value, x_ln)
+            k_l, v_l = cache["k"][l], cache["v"][l]
+            if incremental:
+                attn = decode_attn.fused_step(q, k_raw, v_raw, k_l, v_l, offset, n_head)[0]
+            else:
+                update_cache(k_l, k_raw * scale, offset)
+                update_cache(v_l, v_raw, offset)
+                attn = cached_qkv_attention(q, k_l, v_l, n_head, mask=mask)
+            x = x + linear(ap.out, attn)
+            x = x + attention_block(
+                blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head,
+                k_override=cache["xa_k"][l], v_override=cache["xa_v"][l],
+            )
+            x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+
+    x = layer_norm(dec.ln, x)
+    logits = torch.matmul(x.float(), lm_head_weight(params, x.dtype).t())
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Initialization and the decode-time parameter copy
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def init_params(
+    generator: torch.Generator, dims: ModelDimensions,
+    extras: ModelExtras = ModelExtras(), device=None,
+) -> Whisper:
+    """A randomly initialized float32 ``Whisper`` on ``device`` (the card
+    unless named; see :func:`..utils.resolve_device`).
+
+    The JAX package's distributions: linear weights N(0, 1/d_in), zero
+    biases, unit LayerNorms, conv weights N(0, 1/(3 d_in)), token embedding
+    N(0, 1/D), positional embedding 0.01 N(0, 1), gates zero (a fresh
+    Flamingo layer is the identity). ``generator`` must live on
+    ``device``; the values differ from JAX's for the same seed."""
+    device = resolve_device(device)
+    with device:
+        model = Whisper(dims, extras).to(device)
+
+    def normal(t: torch.Tensor, std: float) -> None:
+        t.normal_(0.0, std, generator=generator)
+
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            normal(mod.weight, 1.0 / math.sqrt(mod.in_features))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Conv1d):
+            normal(mod.weight, 1.0 / math.sqrt(3 * mod.in_channels))
+            mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, GatedXAttnSubBlock):
+            mod.attn_gate.zero_()
+        elif isinstance(mod, ResidualAttentionBlock) and mod.gated:
+            mod.ff_gate.zero_()
+    normal(model.decoder.token_embedding.weight, 1.0 / math.sqrt(dims.n_text_state))
+    normal(model.decoder.positional_embedding, 0.01)
+    return model.eval()
+
+
+@torch.no_grad()
+def prepare_decode_params(params: Whisper, dtype: torch.dtype) -> Whisper:
+    """The decode loop's one-time parameter copy: every float32 decoder
+    weight cast to the compute ``dtype`` (as the JAX package casts its fp32
+    masters), and the tied embedding's float32 operand for the logits
+    matmul cached. The encoder is shared, not copied: the decode loop does
+    not run it. With ``dtype`` float32 the model itself is returned."""
+    if dtype == torch.float32:
+        return params
+    out = copy.deepcopy(params, memo={id(params.encoder): params.encoder})
+    for p in out.decoder.parameters():
+        if p.dtype == torch.float32:
+            p.data = p.data.to(dtype)
+    out.decoder.lm_head_f32 = out.decoder.token_embedding.weight.detach().float()
+    return out

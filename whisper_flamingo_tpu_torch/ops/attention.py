@@ -1,0 +1,145 @@
+"""Multi-head attention primitives.
+
+Port of ``whisper_flamingo_tpu/ops/attention.py``. The contract is kept:
+
+- q and k are each scaled by ``d_head ** -0.25`` before the logits;
+- in the decode caches K is pre-scaled once, when it is written;
+- logits and softmax are fp32 (the operands are upcast, so the products
+  of bf16 values are exact), and the weights are cast to the compute dtype
+  before the V product.
+
+Layouts: the self cache is unsplit (B, T_max, D); the static cross-attention
+slabs (audio features, conditioning streams) are head-split (B, H, T, Dh).
+
+Left out, each a TPU workaround: the transposed (B, H, Dh, T) slabs kept
+off the 128-lane axis, the selector-matrix form of many-row attention
+(``cached_selector_attention``), the Pallas library fallback and the
+``shard_map`` wrapper. :func:`qkv_attention` with ``backend="flash"`` takes
+the d_head 64 kernel (:mod:`.flash64`); another head size (only the
+``debug`` dims) runs the plain path, where the JAX package used the
+library kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from . import flash64
+
+NEG_INF = float("-inf")
+
+
+def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, T, D) -> (B, H, T, D/H), a view."""
+    b, t, d = x.shape
+    return x.view(b, t, n_head, d // n_head).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, D/H) -> (B, T, D)."""
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def _attend(qh, kh, vh, mask=None, out_dtype=None):
+    """fp32 logits and softmax over head-split operands; weights in the
+    compute dtype for the V product."""
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    if mask is not None:
+        logits = logits + mask
+    weights = torch.softmax(logits, dim=-1).to(out_dtype or qh.dtype)
+    return torch.matmul(weights, vh.to(weights.dtype))
+
+
+def qkv_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+    mask: Optional[torch.Tensor] = None, backend: str = "plain",
+) -> torch.Tensor:
+    """Scaled dot-product attention over projected (B, T, D) q/k/v.
+
+    ``mask`` is additive, broadcastable to (B, H, Tq, Tk). With
+    ``backend="flash"``, no mask and d_head 64 the attention runs through
+    :func:`.flash64.flash64_attention` (the CUDA kernel on the card)."""
+    d_head = q.shape[-1] // n_head
+    scale = d_head ** -0.25
+    if backend == "flash" and mask is None and d_head == flash64.D_HEAD:
+        out = flash64.flash64_attention(
+            split_heads(q * scale, n_head), split_heads(k * scale, n_head),
+            split_heads(v.contiguous(), n_head),
+        )
+        return merge_heads(out)
+    qh = split_heads(q, n_head) * scale
+    kh = split_heads(k, n_head) * scale
+    return merge_heads(_attend(qh, kh, split_heads(v, n_head), mask))
+
+
+def causal_mask(n_ctx: int, device=None) -> torch.Tensor:
+    """Additive (n_ctx, n_ctx) causal mask."""
+    return torch.full((n_ctx, n_ctx), NEG_INF, device=device).triu(1)
+
+
+def cached_causal_mask(
+    q_len: int, cache_len: int, offset: Union[int, torch.Tensor], device=None
+) -> torch.Tensor:
+    """Additive mask for attention over a preallocated cache where the
+    current chunk sits at [offset, offset + q_len): position ``i`` sees
+    cache slots ``j <= offset + i``. A (B,) ``offset`` gives a
+    (B, 1, q_len, cache_len) mask."""
+    q_pos = torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(cache_len, device=device)[None, :]
+    if isinstance(offset, torch.Tensor) and offset.dim() == 1:
+        q_pos = offset.to(device)[:, None, None, None] + q_pos[None, None]
+        k_pos = k_pos[None, None]
+    else:
+        q_pos = q_pos + int(offset)
+    zero = torch.zeros((), device=device)
+    return torch.where(k_pos <= q_pos, zero, torch.full((), NEG_INF, device=device))
+
+
+def update_cache(
+    cache: torch.Tensor, new: torch.Tensor, offset: Union[int, torch.Tensor]
+) -> torch.Tensor:
+    """Write ``new`` (B, T, d) into ``cache`` (B, T_max, d) at ``offset``
+    along the time axis, IN PLACE (the JAX version returned a new array).
+    A (B,) ``offset`` writes each row at its own position. Returns
+    ``cache``."""
+    t = new.shape[-2]
+    if isinstance(offset, torch.Tensor) and offset.dim() == 1:
+        idx = offset.to(cache.device).long()[:, None] + torch.arange(t, device=cache.device)
+        rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[rows, idx] = new.to(cache.dtype)
+    else:
+        offset = int(offset)
+        cache[..., offset: offset + t, :] = new.to(cache.dtype)
+    return cache
+
+
+def cached_qkv_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Self-attention of ``q`` (B, Tq, D) against the unsplit (B, T_max, D)
+    cache slabs, K pre-scaled at write time."""
+    d_head = q.shape[-1] // n_head
+    qh = split_heads(q, n_head) * (d_head ** -0.25)
+    kh = split_heads(k, n_head)
+    vh = split_heads(v.to(q.dtype), n_head)
+    return merge_heads(_attend(qh, kh, vh, mask))
+
+
+def xa_qkv_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int
+) -> torch.Tensor:
+    """Cross-attention of ``q`` (B, Tq, D) against a head-split, pre-scaled
+    (B, H, Tk, Dh) K/V slab. No mask."""
+    d_head = q.shape[-1] // n_head
+    qh = split_heads(q, n_head) * (d_head ** -0.25)
+    return merge_heads(_attend(qh, k, v, out_dtype=q.dtype))
+
+
+def head_split_kv(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, T, D) projected K or V -> the contiguous (B, H, T, Dh) slab that
+    :func:`xa_qkv_attention` consumes. A one-time cost at prefill."""
+    return split_heads(x, n_head).contiguous()
