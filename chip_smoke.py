@@ -29,6 +29,23 @@ each printing one JSON line:
    are set to 0 before each run and must show 12 encoder launches and 12
    per incremental decoder step.
 
+5. dtw: the DTW wavefront kernel against its plain version, traces
+   bit-equal, at (65, 1500) and (224, 1500) fp32 N(0, 1), the tie-rich
+   integer (33, 70), (1, 1500) and (448, 1500); the path equals the host
+   DP (``dtw_np``) at (65, 1500). Its time beside the byte bound, the
+   chain of N+M dependent diagonals and the plain version's time (no
+   PyTorch call computes this DP).
+6. longform: the port's ``transcribe`` on ``load_model("small")`` in bf16
+   over 90 s of the bench's synthetic audio, English, greedy at
+   temperature 0, 64 tokens per window with EOT suppressed, word
+   timestamps on. Every segment with text has words, word times are
+   ordered and inside the audio, the DTW kernel ran once per window with
+   text and flash64 12 times per decode plus 12 per alignment pass. Then
+   fp32 through the kernels and through the plain versions: the same
+   segments and words. Wall seconds, audio seconds per wall second, the
+   window count and the share of wall time in ``add_word_timestamps``;
+   every writer's file.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
 throughout. Any failed phase raises, and the script exits non-zero.
@@ -40,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -49,6 +67,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; fp32 without TF32
 
 BATCH, SAMPLE_LEN, BEAM = 8, 64, 15
 T_MAX, D_MODEL, N_HEAD = 448, 768, 12
+LONGFORM_SECONDS, MAX_WINDOWS = 90, 40
 
 
 def emit(obj) -> None:
@@ -182,6 +201,161 @@ def phase_decode_attn(torch, decode_attn, gen):
     return results[8], results[BATCH * BEAM]
 
 
+def phase_dtw(torch, dtw):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rows, timed = [], {}
+    for shape, ints in (((65, 1500), False), ((224, 1500), False), ((33, 70), True),
+                        ((1, 1500), False), ((448, 1500), False)):
+        x = rng.integers(0, 2, shape) if ints else rng.standard_normal(shape)
+        x = torch.from_numpy(x.astype(np.float32)).cuda()
+        trace = dtw.dtw_trace(x)
+        torch.cuda.synchronize()
+        ref = dtw.dtw_trace_plain(x)
+        err = max_err(trace, ref)
+        if not torch.equal(trace, ref):
+            raise AssertionError(f"dtw {shape}: the trace differs from the plain version's")
+        row = {"shape": list(shape), "tie_rich": ints, "max_abs_err": err, "tol": 0}
+        if shape == (65, 1500):
+            path = dtw.backtrace_np(trace.cpu().numpy())
+            if not np.array_equal(path, dtw.dtw_np(x.cpu().numpy())):
+                raise AssertionError("dtw (65, 1500): the path differs from dtw_np's")
+            row["path_equals_dtw_np"] = True
+        if shape in ((65, 1500), (224, 1500)):
+            n, m = shape
+            row["ms"] = time_ms(lambda: dtw.dtw_trace(x), 50)
+            row["plain_ms"] = time_ms(lambda: dtw.dtw_trace_plain(x), 2, 1)
+            row["bound_ms"], row["bound_by"] = bound(0.0, 4.0 * n * m + (n + 1) * (m + 1),
+                                                     "float32")
+            row["chain_steps"] = n + m
+            row["library_ms"] = None  # no PyTorch call computes this DP
+            timed[shape] = row
+        rows.append(row)
+    emit({"phase": "dtw", "cases": rows})
+    return timed[(65, 1500)]
+
+
+def phase_longform(torch, wt, eot):
+    """Long-form transcribe with word timestamps through the entry point."""
+    import importlib
+
+    import numpy as np
+
+    from whisper_flamingo_tpu_torch.ops import decode_attn, dtw, flash64
+    from whisper_flamingo_tpu_torch.writers import get_writer
+
+    tr = importlib.import_module("whisper_flamingo_tpu_torch.transcribe")
+    audio = np.random.default_rng(0).standard_normal(16000 * LONGFORM_SECONDS)
+    audio = audio.astype(np.float32) * 0.05
+    model = wt.load_model("small", device="cuda", seed=0)
+    n_layer = model.dims.n_audio_layer
+    stats = {}
+    decode, add_words = tr.decode, tr.add_word_timestamps
+
+    def counted_decode(*args, **kwargs):
+        stats["decodes"] += 1
+        return decode(*args, **kwargs)
+
+    def timed_add_words(**kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        add_words(**kwargs)
+        torch.cuda.synchronize()
+        stats["words_s"] += time.perf_counter() - t0
+        stats["with_text"] += any(t < eot for s in kwargs["segments"] for t in s["tokens"])
+
+    def run(fp16):
+        model.dtype = torch.bfloat16 if fp16 else torch.float32
+        stats.update(decodes=0, words_s=0.0, with_text=0)
+        for k in (flash64.flash64_attention, decode_attn.fused_step, dtw.dtw_trace):
+            k.launches = 0
+        tr.decode, tr.add_word_timestamps = counted_decode, timed_add_words
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = wt.transcribe(
+                model, audio, language="en", temperature=0.0, word_timestamps=True,
+                sample_len=SAMPLE_LEN, suppress_tokens=f"-1,{eot}", fp16=fp16,
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            tr.decode, tr.add_word_timestamps = decode, add_words
+        launches = {"flash64": flash64.flash64_attention.launches,
+                    "decode_attn": decode_attn.fused_step.launches,
+                    "dtw": dtw.dtw_trace.launches}
+        return result, wall, dict(stats), launches
+
+    result, wall, st, launches = run(True)
+    windows = st["decodes"]
+    segs = result["segments"]
+    words = [w for s in segs for w in s["words"]]
+    if not (3 <= windows <= MAX_WINDOWS):
+        raise AssertionError(f"longform: {windows} windows, expected 3 to {MAX_WINDOWS}")
+    if any(s["text"].strip() and not s["words"] for s in segs):
+        raise AssertionError("longform: a segment with text has no words")
+    starts = [w["start"] for w in words]
+    if not words or starts != sorted(starts) or any(
+        not (0.0 <= w["start"] <= w["end"] <= LONGFORM_SECONDS) for w in words
+    ):
+        raise AssertionError(f"longform: word times out of order or outside the audio: {words}")
+    if launches["dtw"] != st["with_text"]:
+        raise AssertionError(f"longform: {launches['dtw']} DTW launches, {st['with_text']} "
+                             "windows with text")
+    if launches["flash64"] != n_layer * (windows + st["with_text"]):
+        raise AssertionError(f"longform: {launches['flash64']} flash64 launches, expected "
+                             f"{n_layer} x ({windows} decodes + {st['with_text']} alignments)")
+    with tempfile.TemporaryDirectory() as out_dir:
+        get_writer("all", out_dir)(result, "longform.wav", {"max_line_width": 42,
+                                                            "max_line_count": 2})
+        files = sorted(os.listdir(out_dir))
+        sizes = {f: os.path.getsize(os.path.join(out_dir, f)) for f in files}
+        with open(os.path.join(out_dir, "longform.json")) as f:
+            if len(json.load(f)["segments"]) != len(segs):
+                raise AssertionError("longform: the JSON writer lost segments")
+    want = [f"longform.{e}" for e in ("json", "srt", "tsv", "txt", "vtt")]
+    if files != want or not all(sizes.values()):
+        raise AssertionError(f"longform: writer files {sizes}, expected {want}")
+    out = {"phase": "longform_bf16_small", "audio_s": LONGFORM_SECONDS, "wall_s": wall,
+           "audio_s_per_wall_s": LONGFORM_SECONDS / wall, "windows": windows,
+           "windows_with_text": st["with_text"], "segments": len(segs), "words": len(words),
+           "word_timestamps_s": st["words_s"], "word_timestamps_share": st["words_s"] / wall,
+           "launches": launches, "writer_bytes": sizes}
+    emit(out)
+
+    # fp32 through the kernels, then through the plain versions
+    kernel_res, _, _, _ = run(False)
+    saved = flash64.flash64_attention, decode_attn.fused_step, dtw.dtw_trace
+
+    def plain_step(q, k_raw, v_raw, k_cache, v_cache, offset, n_head):
+        return decode_attn.fused_step_plain(q, k_raw, v_raw, k_cache, v_cache, offset,
+                                            n_head), k_cache, v_cache
+
+    flash64.flash64_attention = flash64.flash64_attention_plain
+    decode_attn.fused_step = plain_step
+    dtw.dtw_trace = dtw.dtw_trace_plain
+    try:
+        plain_res, _, _, _ = run(False)
+    finally:
+        flash64.flash64_attention, decode_attn.fused_step, dtw.dtw_trace = saved
+
+    def key(res):
+        return [(s["seek"], s["start"], s["end"], s["text"], s["tokens"],
+                 [(w["word"], w["start"], w["end"]) for w in s["words"]]) for s in res["segments"]]
+
+    prob_diff = max([abs(a["probability"] - b["probability"])
+                     for sa, sb in zip(kernel_res["segments"], plain_res["segments"])
+                     for a, b in zip(sa["words"], sb["words"])] or [0.0])
+    same = key(kernel_res) == key(plain_res)
+    emit({"phase": "longform_fp32_kernel_vs_plain", "segments_and_words_equal": same,
+          "segments": len(kernel_res["segments"]), "word_probability_max_diff": prob_diff})
+    if not same or prob_diff > 1e-4:
+        raise AssertionError("longform fp32: the kernels' segments or words differ from the "
+                             f"plain path's (word probability max diff {prob_diff})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -192,7 +366,7 @@ def main() -> int:
     import numpy as np
 
     import whisper_flamingo_tpu_torch as wt
-    from whisper_flamingo_tpu_torch.ops import cuda_build, decode_attn, flash64
+    from whisper_flamingo_tpu_torch.ops import cuda_build, decode_attn, dtw, flash64
     from whisper_flamingo_tpu_torch.tokenizer import get_tokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -306,6 +480,12 @@ def main() -> int:
     runs["flamingo_beam15"] = dict(timed(task, 2, xt), flash64_launches=counts[0],
                                    decode_attn_launches=counts[1])
     emit({"phase": f"bf16_flamingo_beam15_small_b{BATCH}", **runs["flamingo_beam15"]})
+    del fmodel, task
+    torch.cuda.empty_cache()
+
+    # -- 5. the DTW kernel; 6. long-form transcribe with word timestamps -------
+    dw = phase_dtw(torch, dtw)
+    longform = phase_longform(torch, wt, eot)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -322,6 +502,8 @@ def main() -> int:
         entry("decode_attn_rows120", "whisper_flamingo_tpu_torch/csrc/decode_attn.cu",
               "whisper_flamingo_tpu/ops/decode_attn.py:211",
               runs["beam15"]["decode_attn_launches"], da120),
+        entry("dtw", "whisper_flamingo_tpu_torch/csrc/dtw.cu",
+              "whisper_flamingo_tpu/ops/dtw_pallas.py:48", longform["launches"]["dtw"], dw),
     ]
     emit({"phase": "summary", "total_s": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

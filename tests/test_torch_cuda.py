@@ -7,14 +7,15 @@ import) and run on the card with
 
 Tolerances as in ``chip_smoke.py``: fp32 1e-5 (sums in another order),
 bf16 1e-2 / 2e-2 (a few bf16 ulps of outputs of order 1); the updated
-caches must be bit-equal (the same one multiplication per element).
+caches must be bit-equal (the same one multiplication per element), and so
+must the DTW traces (the same cascade and one fp32 add per cell).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from whisper_flamingo_tpu_torch.ops import decode_attn, flash64
+from whisper_flamingo_tpu_torch.ops import decode_attn, dtw, flash64
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +106,33 @@ def test_debug_decode_kernel_tokens_equal_plain(gen, monkeypatch):
             m.setattr(decode_attn, "fused_step", lambda *a: (decode_attn.fused_step_plain(*a), a[3], a[4]))
             ref = wt.DecodingTask(model, opts).run(mel)
         assert [g.tokens for g in got] == [r.tokens for r in ref]
+
+
+@pytest.mark.parametrize("shape,ints", [
+    ((1, 1), False), ((1, 1500), False), ((65, 1), False), ((9, 17), True),
+    ((33, 70), True), ((65, 1500), False), ((224, 1500), False), ((448, 1500), False),
+    ((1023, 40), False),
+])
+def test_dtw_kernel_trace_equals_plain(gen, shape, ints):
+    """Bit-equal traces, tie-rich integer costs included; the path equals
+    the host DP's where that is quick."""
+    rng = np.random.default_rng(shape[0] * 7919 + shape[1])
+    x = rng.integers(0, 2, shape) if ints else rng.standard_normal(shape)
+    x = torch.from_numpy(x.astype(np.float32)).cuda()
+    before = dtw.dtw_trace.launches
+    got = dtw.dtw_trace(x)
+    assert dtw.dtw_trace.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == (shape[0] + 1, shape[1] + 1)
+    assert torch.equal(got, dtw.dtw_trace_plain(x))
+    if shape[0] * shape[1] <= 70 * 70:
+        np.testing.assert_array_equal(dtw.dtw(x), dtw.dtw_np(x.cpu().numpy()))
+
+
+def test_dtw_kernel_refuses_what_it_cannot_take(gen):
+    x = torch.zeros(1024, 5, device="cuda")
+    with pytest.raises(ValueError):  # N + 1 > 1024
+        dtw.dtw_trace(x)
+    with pytest.raises(ValueError):  # not contiguous
+        dtw.dtw_trace(torch.zeros(5, 8, device="cuda").t())
+    with pytest.raises(ValueError):  # not fp32
+        dtw.dtw_trace(torch.zeros(5, 8, device="cuda", dtype=torch.bfloat16))

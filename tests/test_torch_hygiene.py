@@ -14,6 +14,10 @@ _CHECK = """
 import sys
 import whisper_flamingo_tpu_torch
 import whisper_flamingo_tpu_torch.convert, whisper_flamingo_tpu_torch.training.checkpoints
+import whisper_flamingo_tpu_torch.timing, whisper_flamingo_tpu_torch.transcribe
+import whisper_flamingo_tpu_torch.writers, whisper_flamingo_tpu_torch.cli
+import whisper_flamingo_tpu_torch.normalizers, whisper_flamingo_tpu_torch.metrics
+import whisper_flamingo_tpu_torch.ops.dtw, whisper_flamingo_tpu_torch.ops.median
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")]
@@ -31,23 +35,31 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _sources():
+    """The port's Python sources and ``chip_smoke.py``."""
+    yield os.path.join(ROOT, "chip_smoke.py")
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "whisper_flamingo_tpu_torch")):
+        yield from (os.path.join(dirpath, f) for f in files if f.endswith(".py"))
+
+
 def test_sources_name_no_jax_module():
-    """No source file of the port imports JAX or the JAX package (the
-    package name is a prefix of the port's: match module names exactly)."""
-    pkg = os.path.join(ROOT, "whisper_flamingo_tpu_torch")
-    for dirpath, _, files in os.walk(pkg):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            with open(os.path.join(dirpath, f)) as fh:
-                for line in fh:
-                    words = line.split()
-                    if words[:1] not in (["import"], ["from"]) or len(words) < 2:
-                        continue
-                    mod = words[1].rstrip(",")
-                    assert not (mod == "jax" or mod.startswith("jax.")), (f, line)
-                    assert not (mod == "whisper_flamingo_tpu"
-                                or mod.startswith("whisper_flamingo_tpu.")), (f, line)
+    """No source file of the port, and not ``chip_smoke.py``, imports JAX or
+    the JAX package (the package name is a prefix of the port's: match
+    module names exactly)."""
+    names = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in ("timing", "transcribe", "writers", "cli", "__main__", "metrics",
+                "normalizers/basic", "normalizers/english", "ops/dtw", "ops/median"):
+        assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
+    for path in _sources():
+        with open(path) as fh:
+            for line in fh:
+                words = line.split()
+                if words[:1] not in (["import"], ["from"]) or len(words) < 2:
+                    continue
+                mod = words[1].rstrip(",")
+                assert not (mod == "jax" or mod.startswith("jax.")), (path, line)
+                assert not (mod == "whisper_flamingo_tpu"
+                            or mod.startswith("whisper_flamingo_tpu.")), (path, line)
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
@@ -70,8 +82,10 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 def test_kernel_wrappers_raise_on_a_device_without_a_kernel():
     """A wrapper takes its plain version only for CPU tensors: a tensor on
     any other device without a kernel raises."""
-    from whisper_flamingo_tpu_torch.ops import decode_attn, flash64
+    from whisper_flamingo_tpu_torch.ops import decode_attn, dtw, flash64
 
+    with pytest.raises(RuntimeError, match="no kernel"):
+        dtw.dtw(torch.empty(3, 4, device="meta"))
     q = torch.empty(1, 2, 10, 32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         flash64.flash64_attention(q, q, q)

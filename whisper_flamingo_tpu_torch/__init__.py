@@ -1,19 +1,23 @@
 """whisper_flamingo_tpu_torch: the PyTorch / CUDA port of whisper_flamingo_tpu.
 
-The batched 30 s decode path on an NVIDIA H100 (Hopper): the log-mel
+On an NVIDIA H100 (Hopper): the batched 30 s decode path (the log-mel
 frontend, the Whisper encoder and decoder with Flamingo gated
-cross-attention, KV-cached greedy / sampling / beam decoding, and the
-tokenizer. The two attention kernels of that path are CUDA C++ for
-``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
+cross-attention, KV-cached greedy / sampling / beam decoding, the
+tokenizer) and long-form transcription (``transcribe``: the sliding
+window with the temperature fallback and prompt chaining, word
+timestamps by cross-attention DTW, the subtitle writers, the CLI
+``python -m whisper_flamingo_tpu_torch``), with the text normalizers and
+error-rate metrics. The three kernels of those paths (encoder attention,
+decode attention, the DTW wavefront) are CUDA C++ for ``sm_90a`` under
+``csrc/``, built with ``nvcc`` at first use.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no card and no device named they raise. The package imports torch,
-numpy and tiktoken, never JAX or the JAX package.
+numpy, tiktoken and regex, never JAX or the JAX package.
 
-Not ported yet (see ROADMAP.md): ``transcribe`` and word timing, the DTW
-and median ops, serving, speculative decoding, the int8 modes, training,
-data pipelines, the BERT / AV-HuBERT / visual / legacy models,
-parallelism, normalizers, writers, metrics and the CLI.
+Not ported yet (see ROADMAP.md): serving, speculative decoding, the int8
+modes, training, data pipelines, the BERT / AV-HuBERT / visual / legacy
+models and parallelism.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .audio import load_audio, log_mel_spectrogram, pad_or_trim  # noqa: F401
 from .decoding import DecodingOptions, DecodingResult, DecodingTask, decode, detect_language  # noqa: F401
 from .models.dims import MODEL_DIMS, ModelDimensions, available_models  # noqa: F401
 from .models.whisper import ModelExtras, Whisper, init_params  # noqa: F401
+from .transcribe import transcribe
 from .utils import resolve_device
 
 __version__ = "0.1.0"
@@ -91,3 +96,4 @@ def load_model(
 # inference entry points on the model handle
 Whisper.decode = decode
 Whisper.detect_language = detect_language
+Whisper.transcribe = transcribe

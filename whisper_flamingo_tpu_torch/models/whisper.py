@@ -32,8 +32,8 @@ Left out, each a TPU workaround or a later slice: ``CACHE_LOOP`` and
 decode loop reorders the self cache with ``index_select``), the
 transposed (B, H, Dh, T) slabs, the fused QKV projection, the int8 serving
 modes (``quantize_decode_params``), the streaming decode MLP kernel,
-``return_cross_qk`` (word timing), rematerialization and the legacy
-keyword conditioning (``embed_tokens_as_xt``).
+rematerialization and the legacy keyword conditioning
+(``embed_tokens_as_xt``).
 """
 
 from __future__ import annotations
@@ -183,6 +183,24 @@ class Whisper(nn.Module):
     def device(self) -> torch.device:
         return self.decoder.token_embedding.weight.device
 
+    def set_alignment_heads(self, dump: bytes) -> None:
+        """Install a base85-gzip alignment-head bitmap (the published format)."""
+        from ..registry import decode_alignment_heads
+
+        self.alignment_heads = decode_alignment_heads(
+            dump, self.dims.n_text_layer, self.dims.n_text_head
+        )
+
+    def get_alignment_heads(self) -> np.ndarray:
+        """(n_text_layer, n_text_head) bool mask of the cross-attention heads
+        word timing reads; every head of the second half of the decoder
+        layers when none are known."""
+        if self.alignment_heads is not None:
+            return np.asarray(self.alignment_heads, dtype=bool)
+        heads = np.zeros((self.dims.n_text_layer, self.dims.n_text_head), bool)
+        heads[self.dims.n_text_layer // 2:] = True
+        return heads
+
     @property
     def is_multilingual(self) -> bool:
         return self.dims.is_multilingual
@@ -248,11 +266,12 @@ def attention_block(
     p: MultiHeadAttention, x: torch.Tensor, n_head: int,
     kv_src: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
     k_override: Optional[torch.Tensor] = None, v_override: Optional[torch.Tensor] = None,
-    backend: str = "plain",
-) -> torch.Tensor:
+    backend: str = "plain", return_qk: bool = False,
+):
     """Projected multi-head attention. ``kv_src`` selects cross-attention;
     ``k_override``/``v_override`` are cached head-split (B, H, T, Dh) slabs
-    with K pre-scaled.
+    with K pre-scaled. ``return_qk`` (no override) also returns the fp32
+    logits, as ``(out, logits)``.
 
     Beam grouping: when the slab batch is smaller than the query batch
     (beam search shares one audio stream across ``G`` beams) the beam axis
@@ -271,6 +290,9 @@ def attention_block(
     src = x if kv_src is None else kv_src
     k = linear(p.key, src)
     v = linear(p.value, src)
+    if return_qk:
+        out, qk = qkv_attention(q, k, v, n_head, mask=mask, return_qk=True)
+        return linear(p.out, out), qk
     return linear(p.out, qkv_attention(q, k, v, n_head, mask=mask, backend=backend))
 
 
@@ -443,12 +465,15 @@ def decoder_apply(
     audio_features: Optional[torch.Tensor] = None, *,
     xt: Optional[torch.Tensor] = None, cache: Optional[Cache] = None,
     offset: Union[int, torch.Tensor] = 0, dtype: torch.dtype = torch.float32,
-    sequential_xt: bool = False,
+    sequential_xt: bool = False, return_cross_qk: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """tokens (B, T) [+ audio features (B, Ta, D)] -> (fp32 logits (B, T, V), cache).
 
     Without ``cache``: teacher-forced (full causal mask, cross-attention
-    projected from ``audio_features`` in every layer). With ``cache``: the
+    projected from ``audio_features`` in every layer); with
+    ``return_cross_qk`` the second element is, in place of the cache, the
+    stacked fp32 audio cross-attention logits (L, B, H, T, Ta) that word
+    timing reads. With ``cache``: the
     decode path; the chunk's self K/V are written at ``offset`` (an int,
     or a (B,) tensor of per-row offsets) IN PLACE, and attention uses the
     precomputed audio / conditioning K/V. A one-token chunk (an
@@ -471,20 +496,30 @@ def decoder_apply(
     x = (dec.token_embedding.weight[tokens] + pos).to(dtype)
 
     use_gated = dec.blocks[0].gated
+    if return_cross_qk and cache is not None:
+        raise ValueError("return_cross_qk runs on the teacher-forced path only (no cache)")
     if cache is None:
         xt_p = _prepare_xt(params, dims, xt, dtype) if (use_gated and xt is not None) else None
         mask = causal_mask(T, device=dev)
         xa = audio_features.to(dtype)
+        qks = []
         for blk in dec.blocks:
             if xt_p is not None:
                 x = gated_x_attn(blk, x, xt_p, n_head, sequential=sequential_xt)
             elif use_gated:
                 x = _gated_ff_only(blk, x)
             x = x + attention_block(blk.attn, layer_norm(blk.attn_ln, x), n_head, mask=mask)
-            x = x + attention_block(
-                blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head, kv_src=xa
+            cross = attention_block(
+                blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head, kv_src=xa,
+                return_qk=return_cross_qk,
             )
+            if return_cross_qk:
+                cross, qk = cross
+                qks.append(qk)
+            x = x + cross
             x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+        if return_cross_qk:
+            cache = torch.stack(qks)
     else:
         scale = (dims.n_text_state // n_head) ** -0.25
         have_xt_kv = use_gated and "xt_k" in cache

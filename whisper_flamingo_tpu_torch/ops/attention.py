@@ -43,28 +43,32 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
-def _attend(qh, kh, vh, mask=None, out_dtype=None):
+def _attend(qh, kh, vh, mask=None, out_dtype=None, return_qk=False):
     """fp32 logits and softmax over head-split operands; weights in the
-    compute dtype for the V product."""
+    compute dtype for the V product. With ``return_qk`` also the fp32
+    logits (mask added)."""
     logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
     if mask is not None:
         logits = logits + mask
     weights = torch.softmax(logits, dim=-1).to(out_dtype or qh.dtype)
-    return torch.matmul(weights, vh.to(weights.dtype))
+    out = torch.matmul(weights, vh.to(weights.dtype))
+    return (out, logits) if return_qk else out
 
 
 def qkv_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
-    mask: Optional[torch.Tensor] = None, backend: str = "plain",
-) -> torch.Tensor:
+    mask: Optional[torch.Tensor] = None, backend: str = "plain", return_qk: bool = False,
+):
     """Scaled dot-product attention over projected (B, T, D) q/k/v.
 
     ``mask`` is additive, broadcastable to (B, H, Tq, Tk). With
     ``backend="flash"``, no mask and d_head 64 the attention runs through
-    :func:`.flash64.flash64_attention` (the CUDA kernel on the card)."""
+    :func:`.flash64.flash64_attention` (the CUDA kernel on the card). With
+    ``return_qk`` (the plain path) it returns ``(out, logits)``: the fp32
+    pre-softmax scaled logits (B, H, Tq, Tk) that word timing reads."""
     d_head = q.shape[-1] // n_head
     scale = d_head ** -0.25
-    if backend == "flash" and mask is None and d_head == flash64.D_HEAD:
+    if backend == "flash" and mask is None and not return_qk and d_head == flash64.D_HEAD:
         out = flash64.flash64_attention(
             split_heads(q * scale, n_head), split_heads(k * scale, n_head),
             split_heads(v.contiguous(), n_head),
@@ -72,6 +76,9 @@ def qkv_attention(
         return merge_heads(out)
     qh = split_heads(q, n_head) * scale
     kh = split_heads(k, n_head) * scale
+    if return_qk:
+        out, logits = _attend(qh, kh, split_heads(v, n_head), mask, return_qk=True)
+        return merge_heads(out), logits
     return merge_heads(_attend(qh, kh, split_heads(v, n_head), mask))
 
 
