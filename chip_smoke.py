@@ -46,6 +46,31 @@ each printing one JSON line:
    window count and the share of wall time in ``add_word_timestamps``;
    every writer's file.
 
+7. flash64_bwd: the forward's lse and the backward kernels
+   (``csrc/flash64_bwd.cu``: the D row pass, dK/dV, dQ) against their plain
+   versions at (8, 12, T, 64) for T in 1500, 400, 100 and 1, bf16 and fp32;
+   two launches give the same bits. At T = 1500: the forward with lse and
+   the backward beside their bounds, the plain versions' times, and SDPA's
+   forward and backward through autograd (a yardstick the port never
+   calls).
+8. train_small_b8: the JAX package's train bench protocol
+   (``bench.py:105-138``): ``small``, batch 8 of (80, 3000) mel, 128
+   tokens, AdamW lr 1e-5 over 1000 steps, bf16 compute over fp32 masters,
+   the encoder trainable, ``remat="full"`` and ``"none"``: ms per step
+   (median of 10 after warm-up), tokens/s, MFU (3 x ``model_flops`` over
+   989 TFLOP/s), peak memory, flash64 launches per step, and a falling loss.
+9. train_fp32_kernel_vs_plain: one fp32 step of ``small`` at full depth
+   through the kernels and through the plain flash64 functions: the losses
+   agree to 1e-5 relative and every gradient to 1e-4 of its largest
+   magnitude.
+10. recipe_whisper_ft: ``recipes.whisper_ft`` in-process on
+    ``configs/smoke/ft.yaml`` with ``model_name=small``, batch 8, 16
+    synthetic utterances, bf16, validation every 2 steps: a run stopped at
+    step 4 of 6 (``max_steps``) and resumed equals an uninterrupted 6-step
+    run (train losses to 1e-6 relative); the metrics JSONL, top-k pruning
+    and ``last`` are present. The flash64 counters are read around the
+    first run, the training path's main run.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
 throughout. Any failed phase raises, and the script exits non-zero.
@@ -268,7 +293,7 @@ def phase_longform(torch, wt, eot):
     def run(fp16):
         model.dtype = torch.bfloat16 if fp16 else torch.float32
         stats.update(decodes=0, words_s=0.0, with_text=0)
-        for k in (flash64.flash64_attention, decode_attn.fused_step, dtw.dtw_trace):
+        for k in (flash64.flash64_forward, decode_attn.fused_step, dtw.dtw_trace):
             k.launches = 0
         tr.decode, tr.add_word_timestamps = counted_decode, timed_add_words
         try:
@@ -282,7 +307,7 @@ def phase_longform(torch, wt, eot):
             wall = time.perf_counter() - t0
         finally:
             tr.decode, tr.add_word_timestamps = decode, add_words
-        launches = {"flash64": flash64.flash64_attention.launches,
+        launches = {"flash64": flash64.flash64_forward.launches,
                     "decode_attn": decode_attn.fused_step.launches,
                     "dtw": dtw.dtw_trace.launches}
         return result, wall, dict(stats), launches
@@ -356,6 +381,273 @@ def phase_longform(torch, wt, eot):
     return out
 
 
+def phase_flash64_bwd(torch, flash64, gen):
+    """The lse forward and the backward kernels against their plain versions."""
+    import torch.nn.functional as F
+
+    rows, timed = [], {}
+    rel = {"bfloat16": 1e-2, "float32": 1e-4}
+    fwd_tol = {"bfloat16": 2e-2, "float32": 1e-5}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for t in (1500, 400, 100, 1):
+            q, k = ((torch.randn(BATCH, N_HEAD, t, 64, generator=gen, device="cuda")
+                     * 64 ** -0.25).to(dtype) for _ in range(2))
+            v, do = (torch.randn(BATCH, N_HEAD, t, 64, generator=gen, device="cuda").to(dtype)
+                     for _ in range(2))
+            o, lse = flash64.flash64_forward(q, k, v, with_lse=True)
+            grads = flash64.flash64_backward(q, k, v, o, lse, do)
+            again = flash64.flash64_backward(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = flash64.flash64_forward_plain(q, k, v, with_lse=True)
+            ref = flash64.flash64_backward_plain(q, k, v, o, lse, do)
+            o_err, lse_err = max_err(o, o_ref), max_err(lse, lse_ref)
+            errs = {n: max_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), grads, ref)}
+            scales = {n: max(r.float().abs().max().item(), 1.0)
+                      for n, r in zip(("dq", "dk", "dv"), ref)}
+            same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+            ok = (o_err <= fwd_tol[dtype_name] and lse_err <= 1e-4 and same_bits
+                  and all(errs[n] <= rel[dtype_name] * scales[n] for n in errs))
+            row = {"dtype": dtype_name, "shape": [BATCH, N_HEAD, t, 64], "o_max_abs_err": o_err,
+                   "lse_max_abs_err": lse_err, "max_abs_err": errs, "scale": scales,
+                   "rel_tol": rel[dtype_name], "same_bits_twice": same_bits}
+            if not ok:
+                raise AssertionError(f"flash64_bwd {dtype_name} t={t}: {row}")
+            if t == 1500:
+                bh, item = BATCH * N_HEAD, q.element_size()
+                row["fwd_lse_ms"] = time_ms(lambda: flash64.flash64_forward(q, k, v, with_lse=True), 10)
+                row["fwd_lse_plain_ms"] = time_ms(
+                    lambda: flash64.flash64_forward_plain(q, k, v, with_lse=True), 3, 1)
+                row["fwd_lse_bound_ms"], row["fwd_lse_bound_by"] = bound(
+                    4.0 * bh * t * t * 64, bh * t * (4 * 64 * item + 4), dtype_name)
+                row["bwd_ms"] = time_ms(lambda: flash64.flash64_backward(q, k, v, o, lse, do), 10)
+                row["bwd_plain_ms"] = time_ms(
+                    lambda: flash64.flash64_backward_plain(q, k, v, o, lse, do), 3, 1)
+                # 5 products of 2*T*T*64; q, k, v, o, dO and the lse read once,
+                # dQ, dK, dV written once
+                row["bwd_bound_ms"], row["bwd_bound_by"] = bound(
+                    5 * 2.0 * bh * t * t * 64, bh * t * (8 * 64 * item + 4), dtype_name)
+                qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+                row["sdpa_fwd_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), 10)
+                out = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
+                row["sdpa_bwd_ms"] = time_ms(
+                    lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True), 10)
+
+                def sdpa_fwd_bwd():
+                    o2 = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
+                    torch.autograd.grad(o2, (qs, ks, vs), do)
+
+                row["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, 10)
+                del out
+                timed[dtype_name] = row
+            rows.append(row)
+    emit({"phase": "flash64_bwd", "cases": rows})
+    return timed["bfloat16"]
+
+
+def _train_batch(np, b):
+    """The bench protocol's batch: numpy seed 0, (b, 80, 3000) mel, (b, 128)
+    tokens and labels in [0, 1000)."""
+    rng = np.random.default_rng(0)
+    return {
+        "input_ids": rng.standard_normal((b, 80, 3000)).astype(np.float32),
+        "dec_input_ids": rng.integers(0, 1000, (b, 128)).astype(np.int32),
+        "labels": rng.integers(0, 1000, (b, 128)).astype(np.int32),
+    }
+
+
+def _profile_step(torch, step, state, batch, wall_ms):
+    """One train step under torch.profiler: the device-busy time (the sum of
+    the kernels' device times), its share of the unprofiled step, and the
+    kernels that take the most device time, grouped by name."""
+    from whisper_flamingo_tpu_torch.profiling import trace
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = sorted(
+        (e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
+        key=dev_us, reverse=True,
+    )
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    return {"device_busy_ms": busy_ms, "idle_share_vs_unprofiled_step": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3, "count": e.count}
+                            for e in kernels[:14]]}
+
+
+def phase_train_small(torch, wt, flash64):
+    """The train bench protocol on small b8, with and without remat."""
+    import numpy as np
+
+    from whisper_flamingo_tpu_torch.profiling import mfu, model_flops
+    from whisper_flamingo_tpu_torch.training.optim import whisper_optimizer
+    from whisper_flamingo_tpu_torch.training.steps import TrainState, make_ce_train_step
+
+    batch = _train_batch(np, BATCH)
+    out = {}
+    for remat in ("full", "none"):
+        model = wt.load_model("small", device="cuda", seed=0)
+        dims = model.dims
+        tx, _ = whisper_optimizer(model, 1e-5, total_steps=1000)
+        step = make_ce_train_step(dims, dtype=torch.bfloat16, remat=remat)
+        state = TrainState.create(model, tx)
+        losses = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):  # warm-up
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+        flash64.flash64_forward.lse_launches = flash64.flash64_backward.launches = 0
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        launches = {"fwd_lse": flash64.flash64_forward.lse_launches,
+                    "bwd": flash64.flash64_backward.launches}
+        losses.append(m["loss"].item())
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+        n_layer = dims.n_audio_layer
+        want = {"fwd_lse": n_layer * (2 if remat == "full" else 1), "bwd": n_layer}
+        if launches != want or not (losses[-1] < losses[0]) or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"train remat={remat}: launches {launches} (expected {want}), "
+                                 f"losses {losses}")
+        ms = float(np.median(times)) * 1e3
+        flops = 3 * model_flops(dims, BATCH, mel_frames=3000, text_len=128)
+        out[remat] = {"ms_per_step": ms, "step_ms_all": [t * 1e3 for t in times],
+                      "tokens_per_s": BATCH * 128 / (ms / 1e3), "mfu": mfu(flops / (ms / 1e3)),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "flash64_launches_per_step": launches, "first_loss": losses[0],
+                      "last_loss": losses[-1], "steps": len(losses)}
+        if remat == "full":
+            out[remat]["profile"] = _profile_step(torch, step, state, batch, ms)
+        emit({"phase": f"train_small_b{BATCH}_remat_{remat}", **out[remat]})
+        del model, tx, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_fp32_kernel_vs_plain(torch, wt, flash64):
+    """One fp32 step of small through the kernels, then through the plain
+    flash64 functions: the same loss and gradients."""
+    import numpy as np
+
+    from whisper_flamingo_tpu_torch.models.whisper import decoder_apply, encoder_apply
+    from whisper_flamingo_tpu_torch.training.optim import whisper_optimizer
+    from whisper_flamingo_tpu_torch.training.steps import ce_loss, to_device
+
+    model = wt.load_model("small", device="cuda", seed=0)
+    whisper_optimizer(model, 1e-5, total_steps=1000)  # marks every parameter trainable
+    b = to_device(_train_batch(np, 2), model.device)
+
+    def loss_and_grads():
+        feats = encoder_apply(model, model.dims, b["input_ids"], dtype=torch.float32)
+        logits, _ = decoder_apply(model, model.dims, b["dec_input_ids"], feats,
+                                  dtype=torch.float32)
+        loss = ce_loss(logits, b["labels"])
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    flash64.flash64_forward.lse_launches = flash64.flash64_backward.launches = 0
+    loss_k, grads_k = loss_and_grads()
+    launches = (flash64.flash64_forward.lse_launches, flash64.flash64_backward.launches)
+    saved = flash64.flash64_forward, flash64.flash64_backward
+    flash64.flash64_forward = flash64.flash64_forward_plain
+    flash64.flash64_backward = flash64.flash64_backward_plain
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        flash64.flash64_forward, flash64.flash64_backward = saved
+    worst = max(
+        ((n, max_err(grads_k[n], g) / max(g.abs().max().item(), 1e-30)) for n, g in grads_p.items()),
+        key=lambda x: x[1],
+    )
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    row = {"phase": "train_fp32_kernel_vs_plain", "loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_diff": loss_rel, "worst_grad": worst[0], "worst_grad_rel_err": worst[1],
+           "n_grads": len(grads_p), "kernel_launches": launches}
+    emit(row)
+    n_layer = model.dims.n_audio_layer
+    if loss_rel > 1e-5 or worst[1] > 1e-4 or launches != (n_layer, n_layer):
+        raise AssertionError(f"train fp32: kernels vs plain {row}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_recipe(torch, flash64):
+    """The port's whisper_ft recipe: train, validate, checkpoint, resume."""
+    from whisper_flamingo_tpu_torch.recipes import whisper_ft
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def args(name, *extra):
+            return [os.path.join(ROOT, "configs", "smoke", "ft.yaml"), "model_name=small",
+                    "batch_size=8", "synthetic_n=16", "validate_every_n_batches=2",
+                    "precision=16-mixed", "num_train_steps=6", "log_every=1", "save_top_k=1",
+                    f"train_id={name}", f"log_output_dir={tmp}/logs",
+                    f"check_output_dir={tmp}/ckpt", *extra]
+
+        def records(name):
+            with open(os.path.join(tmp, "logs", f"{name}.metrics.jsonl")) as f:
+                return [json.loads(line) for line in f]
+
+        for k in (flash64.flash64_forward, flash64.flash64_backward):
+            k.launches = 0
+        flash64.flash64_forward.lse_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = whisper_ft.main(args("a", "max_steps=4"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fwd": flash64.flash64_forward.launches,
+                    "fwd_lse": flash64.flash64_forward.lse_launches,
+                    "bwd": flash64.flash64_backward.launches}
+        n_layer = state.model.dims.n_audio_layer
+        if launches["bwd"] != 4 * n_layer or launches["fwd_lse"] != 8 * n_layer:
+            raise AssertionError(f"recipe: flash64 launches {launches}, expected 4 steps x "
+                                 f"{n_layer} backward and x {2 * n_layer} lse forward")
+        recs = records("a")
+        ckpt = sorted(os.listdir(os.path.join(tmp, "ckpt", "a")))
+        if (state.step != 4 or [r["step"] for r in recs if "loss" in r] != [1, 2, 3, 4]
+                or not any("val/wer" in r for r in recs)
+                or ckpt != ["last.meta.json", "last.pt", "step-00000004.pt"]
+                and ckpt != ["last.meta.json", "last.pt", "step-00000002.pt"]):
+            raise AssertionError(f"recipe: step {state.step}, records {recs}, checkpoints {ckpt}")
+        del state
+        resumed = whisper_ft.main(args("a", "resume_training=True"))
+        del resumed
+        straight = whisper_ft.main(args("b"))
+        del straight
+        torch.cuda.empty_cache()
+        la = {r["step"]: r["loss"] for r in records("a") if "loss" in r}
+        lb = {r["step"]: r["loss"] for r in records("b") if "loss" in r}
+        va = [r["val/loss"] for r in records("a") if r.get("phase") == "final"][-1]
+        vb = [r["val/loss"] for r in records("b") if r.get("phase") == "final"][-1]
+        diffs = [abs(la[s] - lb[s]) / abs(lb[s]) for s in (5, 6)] + [abs(va - vb) / abs(vb)]
+        row = {"phase": "recipe_whisper_ft", "first_run_wall_s": wall, "launches": launches,
+               "train_losses_interrupted": la, "train_losses_straight": lb,
+               "final_val_loss": [va, vb], "resume_rel_diffs": diffs, "checkpoints": ckpt,
+               "records": len(recs)}
+        emit(row)
+        if max(diffs) > 1e-6:
+            raise AssertionError(f"recipe: the resumed run differs from the uninterrupted one {row}")
+        return row
+
+
 def main() -> int:
     import torch
 
@@ -406,11 +698,11 @@ def main() -> int:
         )
 
     def counted_run(task, xt=None):
-        flash64.flash64_attention.launches = 0
+        flash64.flash64_forward.launches = 0
         decode_attn.fused_step.launches = 0
         results = task.run(mel, xt=xt)
         torch.cuda.synchronize()
-        counts = (flash64.flash64_attention.launches, decode_attn.fused_step.launches)
+        counts = (flash64.flash64_forward.launches, decode_attn.fused_step.launches)
         n_layers = task.model.dims.n_text_layer
         want = (task.model.dims.n_audio_layer, n_layers * n_steps)
         if counts != want:
@@ -487,6 +779,12 @@ def main() -> int:
     dw = phase_dtw(torch, dtw)
     longform = phase_longform(torch, wt, eot)
 
+    # -- 7.-10. training: the backward kernels, the train step, the recipe ----
+    fb = phase_flash64_bwd(torch, flash64, gen)
+    phase_train_small(torch, wt, flash64)
+    phase_train_fp32_kernel_vs_plain(torch, wt, flash64)
+    recipe = phase_recipe(torch, flash64)
+
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -504,6 +802,16 @@ def main() -> int:
               runs["beam15"]["decode_attn_launches"], da120),
         entry("dtw", "whisper_flamingo_tpu_torch/csrc/dtw.cu",
               "whisper_flamingo_tpu/ops/dtw_pallas.py:48", longform["launches"]["dtw"], dw),
+        entry("flash64_fwd_lse", "whisper_flamingo_tpu_torch/csrc/flash64_fwd.cu",
+              "whisper_flamingo_tpu/ops/flash64.py:75", recipe["launches"]["fwd_lse"],
+              {"max_abs_err": fb["lse_max_abs_err"], "ms": fb["fwd_lse_ms"],
+               "plain_ms": fb["fwd_lse_plain_ms"], "bound_ms": fb["fwd_lse_bound_ms"],
+               "bound_by": fb["fwd_lse_bound_by"], "library_ms": fb["sdpa_fwd_ms"]}),
+        entry("flash64_bwd", "whisper_flamingo_tpu_torch/csrc/flash64_bwd.cu",
+              "whisper_flamingo_tpu/ops/flash64.py:100", recipe["launches"]["bwd"],
+              {"max_abs_err": max(fb["max_abs_err"].values()), "ms": fb["bwd_ms"],
+               "plain_ms": fb["bwd_plain_ms"], "bound_ms": fb["bwd_bound_ms"],
+               "bound_by": fb["bwd_bound_by"], "library_ms": fb["sdpa_bwd_ms"]}),
     ]
     emit({"phase": "summary", "total_s": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

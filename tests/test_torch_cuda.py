@@ -6,7 +6,9 @@ import) and run on the card with
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances as in ``chip_smoke.py``: fp32 1e-5 (sums in another order),
-bf16 1e-2 / 2e-2 (a few bf16 ulps of outputs of order 1); the updated
+bf16 1e-2 / 2e-2 (a few bf16 ulps of outputs of order 1); the flash64
+backward's gradients 1e-4 (fp32) and 1e-2 (bf16) of their largest
+magnitude; the updated
 caches must be bit-equal (the same one multiplication per element), and so
 must the DTW traces (the same cascade and one fp32 add per cell).
 """
@@ -35,9 +37,9 @@ def gen():
 @pytest.mark.parametrize("t", [1, 63, 300, 1500])
 def test_flash64_kernel_matches_plain(gen, dtype, t):
     q, k, v = (torch.randn(2, 3, t, 64, generator=gen, device="cuda").to(dtype) for _ in range(3))
-    before = flash64.flash64_attention.launches
+    before = flash64.flash64_forward.launches
     out = flash64.flash64_attention(q, k, v)
-    assert flash64.flash64_attention.launches == before + 1
+    assert flash64.flash64_forward.launches == before + 1
     ref = flash64.flash64_attention_plain(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
@@ -49,6 +51,78 @@ def test_flash64_kernel_takes_head_split_views(gen):
     out = flash64.flash64_attention(*views)
     ref = flash64.flash64_attention_plain(*(a.contiguous() for a in views))
     assert (out - ref).abs().max().item() <= 1e-5
+
+
+def _bwd_inputs(gen, t, dtype, b=8, h=12):
+    q, k = ((torch.randn(b, h, t, 64, generator=gen, device="cuda") * 64 ** -0.25).to(dtype)
+            for _ in range(2))
+    v = torch.randn(b, h, t, 64, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(b, h, t, 64, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+# the backward's tolerance is relative to each gradient's largest magnitude,
+# or to 1 where that is smaller (at T = 1, dQ and dK are pure cancellation
+# noise): bf16 outputs are rounded once (2^-8) after fp32 sums in another
+# order; fp32 sums over T terms in another order
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1500, 400, 100, 1])
+def test_flash64_lse_and_backward_match_plain(gen, dtype, t):
+    """The forward's lse and the three backward kernels against the plain
+    versions at the training shapes (8, 12, T, 64); two launches give the
+    same bits (no atomics)."""
+    q, k, v, do = _bwd_inputs(gen, t, dtype)
+    before = flash64.flash64_forward.launches
+    o, lse = flash64.flash64_forward(q, k, v, with_lse=True)
+    assert flash64.flash64_forward.launches == before + 1
+    o_ref, lse_ref = flash64.flash64_forward_plain(q, k, v, with_lse=True)
+    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    before = flash64.flash64_backward.launches
+    got = flash64.flash64_backward(q, k, v, o, lse, do)
+    again = flash64.flash64_backward(q, k, v, o, lse, do)
+    assert flash64.flash64_backward.launches == before + 2
+    ref = flash64.flash64_backward_plain(q, k, v, o, lse, do)
+    for name, a, r, a2 in zip(("dq", "dk", "dv"), got, ref, again):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert torch.equal(a, a2), name
+        scale = r.float().abs().max().item()
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= BWD_REL[dtype] * max(scale, 1.0), (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash64_autograd_through_head_split_views(gen, dtype):
+    """The encoder's layout: q/k/v head-split views of (B, T, H*64)
+    projections, dO arriving through the head merge. Autograd through the
+    kernels equals autograd through the plain versions."""
+    x = [torch.randn(2, 300, 4 * 64, generator=gen, device="cuda").to(dtype) * 0.5
+         for _ in range(3)]
+    w = torch.randn(2, 300, 4 * 64, generator=gen, device="cuda").to(dtype)
+
+    def run():
+        leaves = [a.clone().requires_grad_() for a in x]
+        views = [a.view(2, 300, 4, 64).transpose(1, 2) for a in leaves]
+        out = flash64.flash64_attention(*views)
+        merged = out.transpose(1, 2).reshape(2, 300, 256)
+        (merged.float() * w.float()).sum().backward()
+        return [a.grad for a in leaves]
+
+    got = run()
+    saved = flash64.flash64_forward, flash64.flash64_backward
+    flash64.flash64_forward = lambda q, k, v, with_lse=False: flash64.flash64_forward_plain(
+        q, k, v, with_lse)
+    flash64.flash64_backward = flash64.flash64_backward_plain
+    try:
+        ref = run()
+    finally:
+        flash64.flash64_forward, flash64.flash64_backward = saved
+    for a, r in zip(got, ref):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= BWD_REL[dtype] * max(r.float().abs().max().item(), 1.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -2,6 +2,7 @@
 entry points run on the card unless the caller names the CPU."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -18,6 +19,14 @@ import whisper_flamingo_tpu_torch.timing, whisper_flamingo_tpu_torch.transcribe
 import whisper_flamingo_tpu_torch.writers, whisper_flamingo_tpu_torch.cli
 import whisper_flamingo_tpu_torch.normalizers, whisper_flamingo_tpu_torch.metrics
 import whisper_flamingo_tpu_torch.ops.dtw, whisper_flamingo_tpu_torch.ops.median
+import whisper_flamingo_tpu_torch.config, whisper_flamingo_tpu_torch.profiling
+import whisper_flamingo_tpu_torch.ops.spec_augment, whisper_flamingo_tpu_torch.ops.flash64
+import whisper_flamingo_tpu_torch.data.collator, whisper_flamingo_tpu_torch.data.dataset
+import whisper_flamingo_tpu_torch.data.noise, whisper_flamingo_tpu_torch.data.samplers
+import whisper_flamingo_tpu_torch.data.translations
+import whisper_flamingo_tpu_torch.training.optim, whisper_flamingo_tpu_torch.training.steps
+import whisper_flamingo_tpu_torch.training.trainer
+import whisper_flamingo_tpu_torch.recipes.common, whisper_flamingo_tpu_torch.recipes.whisper_ft
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")]
@@ -48,7 +57,10 @@ def test_sources_name_no_jax_module():
     module names exactly)."""
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     for mod in ("timing", "transcribe", "writers", "cli", "__main__", "metrics",
-                "normalizers/basic", "normalizers/english", "ops/dtw", "ops/median"):
+                "normalizers/basic", "normalizers/english", "ops/dtw", "ops/median",
+                "config", "profiling", "ops/spec_augment", "data/collator", "data/dataset",
+                "data/noise", "data/samplers", "data/translations", "training/optim",
+                "training/steps", "training/trainer", "recipes/common", "recipes/whisper_ft"):
         assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
     for path in _sources():
         with open(path) as fh:
@@ -89,7 +101,36 @@ def test_kernel_wrappers_raise_on_a_device_without_a_kernel():
     q = torch.empty(1, 2, 10, 32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         flash64.flash64_attention(q, q, q)
+    lse = torch.empty(1, 2, 10, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        flash64.flash64_forward(q, q, q, with_lse=True)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        flash64.flash64_backward(q, q, q, q, lse, q)
+    with pytest.raises(RuntimeError, match="no kernel"):  # through autograd too
+        flash64.flash64_attention(q.requires_grad_(), q, q)
     qd = torch.empty(2, 1, 64, device="meta")
     kc = torch.empty(2, 8, 64, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         decode_attn.fused_step(qd, qd, qd, kc, kc, 0, 1)
+
+
+def test_training_modules_have_no_device_fallback():
+    """The training path's sources name no fallback to the CPU or to a
+    plain version: no ``except`` that could swallow a kernel failure (the
+    recipe's only one parses ``key=value`` overrides), and the recipe's
+    device comes from the config (default the card)."""
+    from whisper_flamingo_tpu_torch.config import TrainConfig
+
+    assert TrainConfig().device == "cuda"
+    for rel in ("ops/flash64.py", "training/steps.py", "training/optim.py",
+                "training/trainer.py", "recipes/whisper_ft.py"):
+        with open(os.path.join(ROOT, "whisper_flamingo_tpu_torch", rel)) as fh:
+            text = fh.read()
+        assert not re.search(r"^\s*except\b", text, re.MULTILINE), rel
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        import unittest.mock
+
+        with unittest.mock.patch.object(torch.cuda, "is_available", lambda: False):
+            from whisper_flamingo_tpu_torch.recipes import common
+
+            common.build_model(TrainConfig(model_name="debug"))

@@ -81,7 +81,8 @@ def test_decode_attn_plain_lockstep_rows(monkeypatch):
 def test_wrappers_take_plain_version_for_cpu_tensors():
     """On CPU tensors the wrappers run the plain versions and leave their
     launch counters alone."""
-    flash64.flash64_attention.launches = 0
+    flash64.flash64_forward.launches = 0
+    flash64.flash64_backward.launches = 0
     decode_attn.fused_step.launches = 0
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 2, 50, 64, generator=g) for _ in range(3))
@@ -95,5 +96,6 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
     assert k_out is kc and v_out is vc  # updated in place
     ref = decode_attn.fused_step_plain(qd, kd, vd, kc2, vc2, 3, 1)
     assert torch.equal(out, ref) and torch.equal(kc, kc2)
-    assert flash64.flash64_attention.launches == 0
+    assert flash64.flash64_forward.launches == 0
+    assert flash64.flash64_backward.launches == 0
     assert decode_attn.fused_step.launches == 0

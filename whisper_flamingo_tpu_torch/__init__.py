@@ -7,17 +7,25 @@ tokenizer) and long-form transcription (``transcribe``: the sliding
 window with the temperature fallback and prompt chaining, word
 timestamps by cross-attention DTW, the subtitle writers, the CLI
 ``python -m whisper_flamingo_tpu_torch``), with the text normalizers and
-error-rate metrics. The three kernels of those paths (encoder attention,
-decode attention, the DTW wavefront) are CUDA C++ for ``sm_90a`` under
-``csrc/``, built with ``nvcc`` at first use.
+error-rate metrics, and audio-only Whisper fine-tuning (``config``,
+``data/``, ``training/``, ``profiling``, ``recipes/``). The kernels of
+those paths (encoder attention forward and backward, decode attention,
+the DTW wavefront) are CUDA C++ for ``sm_90a`` under ``csrc/``, built with
+``nvcc`` at first use.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
-with no card and no device named they raise. The package imports torch,
-numpy, tiktoken and regex, never JAX or the JAX package.
+with no card and no device named they raise. Fine-tuning runs as
+
+    python -m whisper_flamingo_tpu_torch.recipes.whisper_ft <config.yaml> [key=value ...]
+
+on the card unless the config or an override says ``device=cpu``
+(``configs/smoke/ft.yaml device=cpu`` trains the debug dims on the CPU);
+``python3 chip_smoke.py`` drives it on the card. The package imports
+torch, numpy, tiktoken, regex and yaml, never JAX or the JAX package.
 
 Not ported yet (see ROADMAP.md): serving, speculative decoding, the int8
-modes, training, data pipelines, the BERT / AV-HuBERT / visual / legacy
-models and parallelism.
+modes, the Flamingo, KD, prompt and AV recipes, the BERT / AV-HuBERT /
+visual / legacy models and parallelism.
 """
 
 from __future__ import annotations

@@ -6,8 +6,11 @@ it takes the JAX parameter pytree as nested dicts of **numpy** arrays
 (layers stacked on a leading axis, linears (in, out), convs (k, in, out),
 gated sub-blocks stacked (layer, lang)) and returns the port's state dict
 (OpenAI key names, torch layouts), so both packages compute one function.
-It imports nothing of JAX: convert the pytree with
-``jax.tree.map(np.asarray, params)`` first.
+Any pytree shaped like the parameters crosses the same way: gradients and
+Adam moments (e.g. ``opt_state[0].mu``) come out keyed by parameter name,
+for comparison with the port's ``.grad`` and optimizer state. It imports
+nothing of JAX: convert the pytree with ``jax.tree.map(np.asarray, tree)``
+first.
 """
 
 from __future__ import annotations

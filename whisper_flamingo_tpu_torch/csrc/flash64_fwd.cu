@@ -8,6 +8,13 @@
 // input dtype before the V product, the V sum is fp32, and the output has
 // the input dtype.
 //
+// With a non-null `lse` the kernel also writes the fp32 row logsumexp
+// m + log(l) (the residual of `_fwd_kernel`'s `lse_ref`, :92-93) into a
+// (B*H, T) array for the backward kernels (csrc/flash64_bwd.cu); l is the
+// fp32 row sum of the probabilities (the TPU kernel's ones-column sum was a
+// TPU workaround). A null `lse` is inference: nothing more is written, as
+// the JAX primal `_flash64` (:141-146) skips the residual.
+//
 // Design for Hopper. The TPU kernel kept all of K and V resident in VMEM
 // (T padded to 1536: 384 KB in bf16), which does not fit the 227 KB of
 // shared memory a block may use. Here K/V stream through shared memory in
@@ -49,8 +56,8 @@ constexpr int SUB = 16;  // keys per online-softmax update
 // projection are taken without a copy.
 __global__ void __launch_bounds__(BQ) flash64_fwd_fma_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int n_head, int t, int64_t sb, int64_t sh, int64_t st,
-    int64_t osb, int64_t osh, int64_t ost) {
+    float* __restrict__ o, float* __restrict__ lse, int n_head, int t, int64_t sb,
+    int64_t sh, int64_t st, int64_t osb, int64_t osh, int64_t ost) {
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
@@ -125,6 +132,7 @@ __global__ void __launch_bounds__(BQ) flash64_fwd_fma_kernel(
     float* orow = o + b * osb + h * osh + (int64_t)row * ost;
 #pragma unroll
     for (int c = 0; c < D; ++c) orow[c] = acc[c] / l;
+    if (lse != nullptr) lse[(int64_t)blockIdx.y * t + row] = m + logf(l);
   }
 }
 
@@ -175,8 +183,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // wrapper checks the pointers and strides).
 __global__ void __launch_bounds__(MMA_THREADS) flash64_fwd_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int n_head, int t, int64_t sb, int64_t sh, int64_t st,
-    int64_t osb, int64_t osh, int64_t ost) {
+    bf16* __restrict__ o, float* __restrict__ lse, int n_head, int t, int64_t sb,
+    int64_t sh, int64_t st, int64_t osb, int64_t osh, int64_t ost) {
   __shared__ __align__(16) bf16 ks[MK][PAD];  // K tile, [key][dim]
   __shared__ __align__(16) bf16 vt[D][PAD];   // V tile transposed, [dim][key]
 
@@ -285,14 +293,20 @@ __global__ void __launch_bounds__(MMA_THREADS) flash64_fwd_mma_kernel(
     if (live0) *reinterpret_cast<uint32_t*>(o0 + dn * 8) = pack_bf16(acc[dn][0] / l0, acc[dn][1] / l0);
     if (live1) *reinterpret_cast<uint32_t*>(o1 + dn * 8) = pack_bf16(acc[dn][2] / l1, acc[dn][3] / l1);
   }
+  if (lse != nullptr && tq == 0) {  // m and l are the same across the quad
+    float* lrow = lse + (int64_t)blockIdx.y * t;
+    if (live0) lrow[r0] = m0 + logf(l0);
+    if (live1) lrow[r0 + 8] = m1 + logf(l1);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// launch's cudaGetLastError() (0 when the kernel was accepted).
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lse` is a
+// contiguous fp32 (batch*n_head, t) array or null. Returns the launch's
+// cudaGetLastError() (0 when the kernel was accepted).
 extern "C" int wf_flash64_fwd(const void* q, const void* k, const void* v, void* o,
-                              int batch, int n_head, int t, int64_t sb, int64_t sh,
+                              float* lse, int batch, int n_head, int t, int64_t sb, int64_t sh,
                               int64_t st, int64_t osb, int64_t osh, int64_t ost,
                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -300,13 +314,13 @@ extern "C" int wf_flash64_fwd(const void* q, const void* k, const void* v, void*
     const dim3 grid((t + BQ - 1) / BQ, batch * n_head);
     flash64_fwd_fma_kernel<<<grid, BQ, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), n_head, t, sb, sh, st,
+        static_cast<const float*>(v), static_cast<float*>(o), lse, n_head, t, sb, sh, st,
         osb, osh, ost);
   } else if (dtype == 1) {
     const dim3 grid((t + MQ - 1) / MQ, batch * n_head);
     flash64_fwd_mma_kernel<<<grid, MMA_THREADS, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), n_head, t, sb, sh, st, osb, osh, ost);
+        static_cast<bf16*>(o), lse, n_head, t, sb, sh, st, osb, osh, ost);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

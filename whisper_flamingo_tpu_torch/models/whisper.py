@@ -31,9 +31,13 @@ Left out, each a TPU workaround or a later slice: ``CACHE_LOOP`` and
 ``SELECTOR_SELF``, the in-loop one-hot beam reorder (``row_perm``; the
 decode loop reorders the self cache with ``index_select``), the
 transposed (B, H, Dh, T) slabs, the fused QKV projection, the int8 serving
-modes (``quantize_decode_params``), the streaming decode MLP kernel,
-rematerialization and the legacy keyword conditioning
-(``embed_tokens_as_xt``).
+modes (``quantize_decode_params``), the streaming decode MLP kernel, the
+rematerialization policies other than full per-block recompute, and the
+legacy keyword conditioning (``embed_tokens_as_xt``).
+
+Training runs autograd through :func:`encoder_apply` and the teacher-forced
+:func:`decoder_apply`; the decode paths (the cached decoder, :func:`init_cache`,
+:func:`prepare_decode_params`) run without it.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import decode_attn
 from ..ops.attention import (
@@ -164,7 +169,9 @@ class ModelExtras:
 class Whisper(nn.Module):
     """The model handle: dims, surgery flags, compute dtype and the
     parameter tree (``encoder``, ``decoder``). The compute functions below
-    take it as ``params``."""
+    take it as ``params``. No parameter requires grad until a training
+    optimizer marks the ones it trains (:mod:`..training.optim`), so
+    inference builds no autograd graph."""
 
     def __init__(
         self, dims: ModelDimensions, extras: ModelExtras = ModelExtras(),
@@ -178,6 +185,7 @@ class Whisper(nn.Module):
         self.alignment_heads = alignment_heads
         self.encoder = AudioEncoder(dims)
         self.decoder = TextDecoder(dims, extras)
+        self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
@@ -362,25 +370,51 @@ def _gated_x_attn_cached(
 # Encoder
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
+def _remat_wrap(fn, remat):
+    """The rematerialization spec of JAX's ``_remat_wrap`` for one block:
+    ``False``/``"none"`` keeps every activation; ``True``/``"full"``
+    recomputes the block in the backward (``checkpoint``, non-reentrant,
+    only while grad is enabled). The numbers are the same either way. The
+    ``jax.checkpoint_policies`` names (``"dots"`` and others) are not
+    ported."""
+    if not remat or remat == "none":
+        return fn
+    if remat is True or remat == "full":
+        def recomputed(*args):
+            if not torch.is_grad_enabled():
+                return fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False)
+
+        return recomputed
+    raise NotImplementedError(
+        f"remat spec {remat!r} is not ported: expected False/'none' or True/'full'"
+    )
+
+
 def encoder_apply(
     params: Whisper, dims: ModelDimensions, mel: torch.Tensor, *,
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, remat=False,
 ) -> torch.Tensor:
     """mel (B, n_mels, T) -> audio features (B, min(T // 2, n_audio_ctx), D).
 
     Conv stack with GELU, sinusoidal positions cropped at ``n_audio_ctx``,
     pre-LN blocks whose self-attention goes through the flash64 kernel at
-    d_head 64, final LN."""
+    d_head 64 (forward and backward when grad is enabled), final LN.
+    ``remat`` as in :func:`_remat_wrap`."""
     enc = params.encoder
     x = gelu(conv1d(enc.conv1, mel.to(dtype), stride=1))
     x = gelu(conv1d(enc.conv2, x, stride=2)).transpose(1, 2)  # (B, T, D)
     x = x[:, : dims.n_audio_ctx]
     x = (x + enc.positional_embedding[: x.shape[1]]).to(dtype)
     n_head = dims.n_audio_head
-    for blk in enc.blocks:
+
+    def block(x, blk):
         x = x + attention_block(blk.attn, layer_norm(blk.attn_ln, x), n_head, backend="flash")
-        x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+        return x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+
+    block = _remat_wrap(block, remat)
+    for blk in enc.blocks:
+        x = block(x, blk)
     return layer_norm(enc.ln_post, x)
 
 
@@ -459,13 +493,12 @@ def lm_head_weight(params: Whisper, dtype: torch.dtype) -> torch.Tensor:
     return dec.token_embedding.weight.to(dtype).float()
 
 
-@torch.no_grad()
 def decoder_apply(
     params: Whisper, dims: ModelDimensions, tokens: torch.Tensor,
     audio_features: Optional[torch.Tensor] = None, *,
     xt: Optional[torch.Tensor] = None, cache: Optional[Cache] = None,
     offset: Union[int, torch.Tensor] = 0, dtype: torch.dtype = torch.float32,
-    sequential_xt: bool = False, return_cross_qk: bool = False,
+    sequential_xt: bool = False, return_cross_qk: bool = False, remat=False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """tokens (B, T) [+ audio features (B, Ta, D)] -> (fp32 logits (B, T, V), cache).
 
@@ -482,7 +515,16 @@ def decoder_apply(
     through the plain cache write and attention.
 
     A gated model run without streams applies only the gated blocks'
-    shared FFN (zero attention delta)."""
+    shared FFN (zero attention delta).
+
+    The teacher-forced path is differentiable (``remat`` as in
+    :func:`_remat_wrap`); the cache path runs without autograd."""
+    if cache is not None and torch.is_grad_enabled():
+        with torch.no_grad():
+            return decoder_apply(
+                params, dims, tokens, audio_features, xt=xt, cache=cache, offset=offset,
+                dtype=dtype, sequential_xt=sequential_xt, return_cross_qk=return_cross_qk,
+            )
     dec = params.decoder
     n_head = dims.n_text_head
     T = tokens.shape[-1]
@@ -502,8 +544,8 @@ def decoder_apply(
         xt_p = _prepare_xt(params, dims, xt, dtype) if (use_gated and xt is not None) else None
         mask = causal_mask(T, device=dev)
         xa = audio_features.to(dtype)
-        qks = []
-        for blk in dec.blocks:
+
+        def block(x, blk):
             if xt_p is not None:
                 x = gated_x_attn(blk, x, xt_p, n_head, sequential=sequential_xt)
             elif use_gated:
@@ -513,11 +555,17 @@ def decoder_apply(
                 blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head, kv_src=xa,
                 return_qk=return_cross_qk,
             )
+            qk = None
             if return_cross_qk:
                 cross, qk = cross
-                qks.append(qk)
             x = x + cross
-            x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+            return x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x)), qk
+
+        block = _remat_wrap(block, remat)
+        qks = []
+        for blk in dec.blocks:
+            x, qk = block(x, blk)
+            qks.append(qk)
         if return_cross_qk:
             cache = torch.stack(qks)
     else:

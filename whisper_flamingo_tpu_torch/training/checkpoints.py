@@ -1,12 +1,16 @@
-"""Checkpoint reading: OpenAI ``.pt`` and Lightning ``.ckpt`` into the port.
+"""Checkpoint interchange: OpenAI ``.pt`` and Lightning ``.ckpt`` into the
+port, and the port's parameters out as an OpenAI ``.pt``.
 
-Port of the read side of ``whisper_flamingo_tpu/training/checkpoints.py``.
+Port of ``whisper_flamingo_tpu/training/checkpoints.py``.
 The port's parameters carry the OpenAI key names, so a state dict loads
 with ``load_state_dict(strict=False)`` on a seeded random init: keys the
 checkpoint lacks (new gated x-attn weights) keep their initialization, and
 keys the model lacks are ignored. Lightning checkpoints are re-keyed by
-stripping the ``model.`` prefix. The save side and Orbax belong to the
-training slice.
+stripping the ``model.`` prefix. The write side is the module's
+``state_dict()``, which already carries the OpenAI keys
+(:func:`to_torch_state_dict`, :func:`save_torch_checkpoint`). The JAX
+package's Orbax training checkpoints are ``torch.save`` files here
+(``training/trainer.py``).
 """
 
 from __future__ import annotations
@@ -80,3 +84,15 @@ def load_torch_checkpoint(
         if dims is None:
             raise ValueError("raw state dict carries no dims; pass dims=")
     return load_torch_state(state, dims, extras, seed=seed, device=device), dims
+
+
+def to_torch_state_dict(model: Whisper) -> Dict[str, torch.Tensor]:
+    """The parameters under the OpenAI keys, as fp32 CPU tensors."""
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+
+
+def save_torch_checkpoint(model: Whisper, path: str) -> None:
+    """Write an OpenAI-format ``.pt`` (``{dims, model_state_dict}``) that
+    torch-based Whisper stacks load."""
+    torch.save({"dims": model.dims.to_dict(), "model_state_dict": to_torch_state_dict(model)},
+               path)

@@ -1,0 +1,252 @@
+"""Training steps: CE fine-tune and knowledge distillation, plus the
+teacher-forced eval step.
+
+Port of ``whisper_flamingo_tpu/training/steps.py``. Each ``make_*`` function returns
+``step(state, batch) -> (state, metrics)`` (the KD steps take the frozen
+teacher model as a second argument):
+
+- family A (audio-only fine-tune): teacher-forced CE with -100 ignore
+  masking; ``freeze_encoder`` detaches the encoder features;
+- family C (Trans-ASR): conditioning streams ``xt`` through the gated
+  x-attn, CE;
+- family D (TransKD): a frozen teacher and a student,
+  ``loss = alpha * CE + beta * T^2 * KL(teacher || student)``;
+- family E (prompt distillation): the teacher reads the prompted token
+  stream, the student the unprompted one, the teacher's logits moved onto
+  the student's label positions.
+
+The step runs the forward in the compute dtype over the fp32 masters,
+backpropagates (through the flash64 backward kernel when the encoder
+trains), and updates the parameters in place through the state's
+optimizer (the analogue of JAX's donated state). Metrics are device
+tensors; reading one waits for the step. The AV step waits for the AV
+slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.dims import ModelDimensions
+from ..models.whisper import Whisper, decoder_apply, encoder_apply
+from .optim import Mask, WhisperOptimizer
+
+LABEL_PAD = -100
+_FP32_CONSUMED = {"decoder.token_embedding.weight", "decoder.positional_embedding"}
+
+
+@dataclass
+class TrainState:
+    """The model (the fp32 masters), its optimizer with the schedule, and
+    the step: the count of train-step calls (micro-steps under gradient
+    accumulation)."""
+
+    model: Whisper
+    optimizer: WhisperOptimizer
+    step: int = 0
+
+    @staticmethod
+    def create(model: Whisper, tx: WhisperOptimizer) -> "TrainState":
+        return TrainState(model=model, optimizer=tx, step=0)
+
+
+def cast_frozen_bf16(model: Whisper, trainable_mask: Mask) -> Whisper:
+    """Store frozen parameters in bf16 (trainable masters stay fp32), in
+    place. With bf16 compute the matmul and conv weights are cast at use
+    anyway, so the forward is bit-identical while the frozen weights take
+    half the memory. Parameters consumed at fp32 stay fp32: LayerNorm
+    weights and biases and the token and positional embeddings."""
+    for mod_name, mod in model.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            full = f"{mod_name}.{name}" if mod_name else name
+            if trainable_mask[full] or p.dtype != torch.float32:
+                continue
+            if isinstance(mod, torch.nn.LayerNorm) or full in _FP32_CONSUMED:
+                continue
+            p.data = p.data.to(torch.bfloat16)
+    return model
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over non-ignored positions (``ignore_index=-100``)."""
+    mask = labels != LABEL_PAD
+    safe = torch.where(mask, labels, torch.zeros_like(labels))
+    logprobs = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logprobs, -1, safe.unsqueeze(-1)).squeeze(-1)
+    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1)
+
+
+def kd_kl_loss(
+    student_logits: torch.Tensor, teacher_logits: torch.Tensor, labels: torch.Tensor,
+    temperature: float,
+) -> torch.Tensor:
+    """T^2-scaled KL(teacher || student), masked-mean over label positions."""
+    t = temperature
+    s = F.log_softmax(student_logits.float() / t, dim=-1)
+    p = F.softmax(teacher_logits.float() / t, dim=-1)
+    logp = F.log_softmax(teacher_logits.float() / t, dim=-1)
+    kl = torch.sum(p * (logp - s), dim=-1)
+    mask = labels != LABEL_PAD
+    return (t * t) * torch.sum(kl * mask) / torch.clamp(mask.sum(), min=1)
+
+
+def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch's arrays as tensors on ``device`` (token ids as int64);
+    host-only fields (strings, lists) are dropped."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, (list, tuple, str)):
+            continue
+        t = torch.as_tensor(v)
+        if not t.is_floating_point():
+            t = t.long()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def _apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    return state
+
+
+def make_ce_train_step(
+    dims: ModelDimensions, *, freeze_encoder: bool = False, use_xt: bool = False,
+    dtype: torch.dtype = torch.bfloat16, remat=True,
+) -> Callable:
+    """CE fine-tune step (families A/B/C). ``use_xt`` feeds the batch's
+    conditioning streams ``xt`` to the gated x-attn."""
+
+    def step(state: TrainState, batch: Dict[str, Any]):
+        model = state.model
+        b = to_device(batch, model.device)
+        feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
+        if freeze_encoder:
+            feats = feats.detach()
+        logits, _ = decoder_apply(
+            model, dims, b["dec_input_ids"], feats, xt=b.get("xt") if use_xt else None,
+            dtype=dtype, remat=remat,
+        )
+        loss = ce_loss(logits, b["labels"])
+        return _apply_update(state, loss), {"loss": loss.detach()}
+
+    return step
+
+
+def make_kd_train_step(
+    dims: ModelDimensions, *, alpha: float = 0.8, beta: float = 1.0,
+    temperature: float = 2.0, freeze_student_encoder: bool = False,
+    share_teacher_features: bool = False, teacher_uses_xt: bool = True,
+    teacher_dims: Optional[ModelDimensions] = None, dtype: torch.dtype = torch.bfloat16,
+    remat=True,
+) -> Callable:
+    """TransKD distillation step (family D): ``step(state, teacher, batch)``.
+    ``share_teacher_features`` reuses the teacher's encoder output for a
+    frozen student encoder; ``teacher_dims`` allows a larger teacher with
+    the same vocabulary."""
+    teacher_dims = teacher_dims or dims
+    if share_teacher_features and teacher_dims.n_audio_state != dims.n_audio_state:
+        raise ValueError(
+            "share_teacher_features needs matching encoder widths "
+            f"(teacher {teacher_dims.n_audio_state} vs student {dims.n_audio_state})"
+        )
+    if teacher_dims.n_vocab != dims.n_vocab:
+        raise ValueError("KD requires a shared vocabulary")
+
+    def step(state: TrainState, teacher: Whisper, batch: Dict[str, Any]):
+        model = state.model
+        b = to_device(batch, model.device)
+        with torch.no_grad():
+            teacher_feats = encoder_apply(teacher, teacher_dims, b["input_ids"], dtype=dtype)
+            teacher_logits, _ = decoder_apply(
+                teacher, teacher_dims, b["dec_input_ids"], teacher_feats,
+                xt=b.get("xt") if teacher_uses_xt else None, dtype=dtype,
+            )
+        if share_teacher_features and freeze_student_encoder:
+            feats = teacher_feats
+        else:
+            feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
+            if freeze_student_encoder:
+                feats = feats.detach()
+        logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, dtype=dtype, remat=remat)
+        ce = ce_loss(logits, b["labels"])
+        kd = kd_kl_loss(logits, teacher_logits, b["labels"], temperature)
+        loss = alpha * ce + beta * kd
+        state = _apply_update(state, loss)
+        return state, {"loss": loss.detach(), "ce": ce.detach(), "kd": kd.detach()}
+
+    return step
+
+
+def _scatter_rows(dest: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """dest[b, idx[b, k]] = src[b, k] per batch row (a new tensor)."""
+    rows = torch.arange(dest.shape[0], device=dest.device)[:, None]
+    out = dest.clone()
+    out[rows, idx] = src
+    return out
+
+
+def make_prompt_kd_train_step(
+    dims: ModelDimensions, *, alpha: float = 0.8, beta: float = 1.0,
+    temperature: float = 2.0, freeze_student_encoder: bool = False,
+    dtype: torch.dtype = torch.bfloat16, remat=True,
+) -> Callable:
+    """Prompt-distillation step (family E): ``step(state, teacher, batch)``.
+    The teacher's logits at its k-th valid label position land on the
+    student's k-th valid label position (both valid regions are the
+    non-pad labels, laid out alike by the collator's asymmetric padding)."""
+
+    def step(state: TrainState, teacher: Whisper, batch: Dict[str, Any]):
+        model = state.model
+        b = to_device(batch, model.device)
+        with torch.no_grad():
+            feats_t = encoder_apply(teacher, dims, b["input_ids"], dtype=dtype)
+            teacher_logits, _ = decoder_apply(
+                teacher, dims, b["teacher_dec_input_ids"], feats_t, dtype=dtype
+            )
+            t_valid = b["teacher_labels"] != LABEL_PAD
+            s_valid = b["labels"] != LABEL_PAD
+            # valid positions first, in order (a stable sort of ~valid)
+            t_idx = torch.sort((~t_valid).to(torch.uint8), dim=1, stable=True).indices
+            s_idx = torch.sort((~s_valid).to(torch.uint8), dim=1, stable=True).indices
+            ts = b["labels"].shape[1]
+            gathered = torch.gather(
+                teacher_logits, 1,
+                t_idx[:, :ts, None].expand(-1, -1, teacher_logits.shape[-1]),
+            )
+            aligned = _scatter_rows(torch.zeros_like(gathered), s_idx[:, :ts], gathered)
+        feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
+        if freeze_student_encoder:
+            feats = feats.detach()
+        logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, dtype=dtype, remat=remat)
+        ce = ce_loss(logits, b["labels"])
+        kd = kd_kl_loss(logits, aligned, b["labels"], temperature)
+        loss = alpha * ce + beta * kd
+        state = _apply_update(state, loss)
+        return state, {"loss": loss.detach(), "ce": ce.detach(), "kd": kd.detach()}
+
+    return step
+
+
+def make_eval_step(
+    dims: ModelDimensions, *, use_xt: bool = False, dtype: torch.dtype = torch.float32,
+) -> Callable:
+    """Teacher-forced eval: ``step(model, batch) -> (loss, argmax tokens)``,
+    without autograd."""
+
+    @torch.no_grad()
+    def step(model: Whisper, batch: Dict[str, Any]):
+        b = to_device(batch, model.device)
+        feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype)
+        logits, _ = decoder_apply(
+            model, dims, b["dec_input_ids"], feats, xt=b.get("xt") if use_xt else None,
+            dtype=dtype,
+        )
+        return ce_loss(logits, b["labels"]), torch.argmax(logits, dim=-1)
+
+    return step
