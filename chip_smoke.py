@@ -70,6 +70,31 @@ each printing one JSON line:
     run (train losses to 1e-6 relative); the metrics JSONL, top-k pruning
     and ``last`` are present. The flash64 counters are read around the
     first run, the training path's main run.
+11. decode_mlp: the streaming decode-MLP kernel (``csrc/decode_mlp.cu``)
+    against its plain version at d 768, f 3072 and 8, 32 and 120 rows, in
+    bf16, fp32 and int8 weights with bf16 x; two launches give the same
+    bits. Times beside the byte bound, the plain version's, and the
+    unfused ``mlp_block`` chain's (the yardstick; not called on this
+    route).
+12. serving_int8: ``small`` b8 on the bench protocol: greedy int8 with
+    ``decode_mlp.ENABLED`` off and on, beam 15 int8kv, the Whisper-Flamingo
+    beam 15 int8kv; RTF and tokens/s, with the launch counters at 0 before
+    each run: 12 flash64 launches, 12 decode-attention launches per
+    incremental step (0 under int8kv), 12 decode-MLP launches per decoder
+    pass with the switch on. Then fp32 int8 greedy with the switch on
+    through the kernels and through the plain versions: the same tokens;
+    and the share of positions where bf16 int8 greedy agrees with bf16
+    greedy (reported).
+13. continuous_batching: ``ContinuousBatcher`` on ``small``, int8, 8 slots,
+    chunk 16: 32 requests of the synthetic audio with token budgets drawn
+    uniformly from 16-96 (numpy seed 0), through ``poll`` and through
+    ``run_queued(sort_admission=True)``: wall time, tokens/s, audio s per
+    wall s, the device idle share of one profiled ``run_queued``. Gate: in
+    fp32 every request equals its per-utterance ``decode`` (a difference
+    prints its position and the logit margin there).
+14. speculative: ``small`` verifier, ``tiny`` draft (seeds 0 and 1),
+    greedy b8, draft length 4: RTF, the share of drafts accepted, verifier
+    passes per token; gate: fp32 tokens equal plain greedy.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
@@ -93,6 +118,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; fp32 without TF32
 BATCH, SAMPLE_LEN, BEAM = 8, 64, 15
 T_MAX, D_MODEL, N_HEAD = 448, 768, 12
 LONGFORM_SECONDS, MAX_WINDOWS = 90, 40
+CB_REQUESTS = 32
 
 
 def emit(obj) -> None:
@@ -267,7 +293,7 @@ def phase_longform(torch, wt, eot):
 
     import numpy as np
 
-    from whisper_flamingo_tpu_torch.ops import decode_attn, dtw, flash64
+    from whisper_flamingo_tpu_torch.ops import decode_attn, decode_mlp, dtw, flash64
     from whisper_flamingo_tpu_torch.writers import get_writer
 
     tr = importlib.import_module("whisper_flamingo_tpu_torch.transcribe")
@@ -351,19 +377,13 @@ def phase_longform(torch, wt, eot):
 
     # fp32 through the kernels, then through the plain versions
     kernel_res, _, _, _ = run(False)
-    saved = flash64.flash64_attention, decode_attn.fused_step, dtw.dtw_trace
-
-    def plain_step(q, k_raw, v_raw, k_cache, v_cache, offset, n_head):
-        return decode_attn.fused_step_plain(q, k_raw, v_raw, k_cache, v_cache, offset,
-                                            n_head), k_cache, v_cache
-
-    flash64.flash64_attention = flash64.flash64_attention_plain
-    decode_attn.fused_step = plain_step
-    dtw.dtw_trace = dtw.dtw_trace_plain
+    restore = _plain_kernels(decode_attn, decode_mlp, flash64)
+    saved_dtw, dtw.dtw_trace = dtw.dtw_trace, dtw.dtw_trace_plain
     try:
         plain_res, _, _, _ = run(False)
     finally:
-        flash64.flash64_attention, decode_attn.fused_step, dtw.dtw_trace = saved
+        restore()
+        dtw.dtw_trace = saved_dtw
 
     def key(res):
         return [(s["seek"], s["start"], s["end"], s["text"], s["tokens"],
@@ -648,6 +668,314 @@ def phase_recipe(torch, flash64):
         return row
 
 
+def phase_decode_mlp(torch, decode_mlp, gen):
+    """The decode-MLP kernel against its plain version at small's widths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_flamingo_tpu_torch.models.whisper import _quantize_linear, mlp_block
+
+    d, f = D_MODEL, 4 * D_MODEL
+    rows_out, timed = [], {}
+    for dtype_name, int8, tol in (("bfloat16", False, 1e-2), ("float32", False, 1e-5),
+                                  ("bfloat16", True, 1e-2)):
+        dtype = getattr(torch, dtype_name)
+        mlp = torch.nn.Sequential(torch.nn.Linear(d, f), torch.nn.GELU(),
+                                  torch.nn.Linear(f, d)).cuda().requires_grad_(False)
+        for lin, fan_in in ((mlp[0], d), (mlp[2], f)):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen, device="cuda")
+                             * fan_in ** -0.5)
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=gen, device="cuda") * 0.1)
+        mlp = mlp.to(dtype)
+        if int8:
+            _quantize_linear(mlp[0])
+            _quantize_linear(mlp[2])
+        w1, w2, s1, s2 = decode_mlp._weights(mlp)
+        b1, b2 = mlp[0].bias, mlp[2].bias
+        for rows in (8, 32, BATCH * BEAM):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+            out = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+            again = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+            torch.cuda.synchronize()
+            ref = decode_mlp.fused_mlp_plain(x, w1, b1, w2, b2, s1, s2)
+            scale = max(ref.float().abs().max().item(), 1.0)
+            err = max_err(out, ref)
+            same = torch.equal(out, again)
+            row = {"dtype": dtype_name, "weights": "int8" if int8 else dtype_name, "rows": rows,
+                   "d": d, "f": f, "max_abs_err": err, "scale": scale, "rel_tol": tol,
+                   "same_bits_twice": same}
+            if not (torch.isfinite(out).all().item() and err <= tol * scale and same):
+                raise AssertionError(f"decode_mlp: {row}")
+            row["ms"] = time_ms(lambda: decode_mlp._launch(x, w1, b1, w2, b2, s1, s2), 200, 10)
+            # back to back, the wrapper's host work can set the pace: the
+            # device time of the two passes, from the profiler
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+                torch.cuda.synchronize()
+            row["device_ms"] = _device_busy(torch, prof)[0] / 20
+            row["plain_ms"] = time_ms(
+                lambda: decode_mlp.fused_mlp_plain(x, w1, b1, w2, b2, s1, s2), 50, 5)
+            # the unfused chain (the route with ENABLED off); not called on this route
+            row["library_ms"] = time_ms(lambda: mlp_block(mlp, x), 200, 10)
+            row["library_call"] = ("mlp_block: linear, GELU, linear (the int8 dequant in each "
+                                   "linear); the port does not call it on the kernel's route")
+            item = x.element_size()
+            w_bytes = w1.numel() * w1.element_size() + w2.numel() * w2.element_size()
+            nbytes = w_bytes + (f + d) * item + 2 * rows * d * item + (4 * (f + d) if int8 else 0)
+            row["bound_ms"], row["bound_by"] = bound(4.0 * rows * d * f, nbytes,
+                                                     "float32" if dtype_name == "float32"
+                                                     else "bfloat16")
+            timed[(dtype_name, int8, rows)] = row
+            rows_out.append(row)
+        del mlp
+    emit({"phase": "decode_mlp", "cases": rows_out})
+    return timed[("bfloat16", True, BATCH)]
+
+
+def _counted(torch, task, mel, n_steps, want, xt=None):
+    """One run with the launch counters set to 0 first; ``want`` maps each
+    kernel's name to its expected launches."""
+    import numpy as np
+
+    from whisper_flamingo_tpu_torch.ops import decode_attn, decode_mlp, flash64
+
+    counters = {"flash64": flash64.flash64_forward, "decode_attn": decode_attn.fused_step,
+                "decode_mlp": decode_mlp.fused_mlp}
+    for c in counters.values():
+        c.launches = 0
+    results = task.run(mel, xt=xt)
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    if got != want:
+        raise AssertionError(f"kernel launches {got}, expected {want}")
+    for r in results:
+        if len(r.tokens) != n_steps + 1 or not np.isfinite(r.avg_logprob):
+            raise AssertionError(f"bad result: {len(r.tokens)} tokens, {r.avg_logprob}")
+    return results, got
+
+
+def _timed(torch, task, mel, iters, xt=None):
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        results = task.run(mel, xt=xt)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    assert all(len(r.tokens) == SAMPLE_LEN for r in results)
+    return {"rtf": iters * BATCH * 30.0 / elapsed, "tok_s": iters * BATCH * SAMPLE_LEN / elapsed,
+            "s_per_batch": elapsed / iters, "iters": iters}
+
+
+def _plain_kernels(decode_attn, decode_mlp, flash64):
+    """Swap every kernel of the decode path for its plain version; returns
+    the function that swaps them back."""
+    saved = flash64.flash64_attention, decode_attn.fused_step, decode_mlp._launch
+
+    def plain_step(q, k_raw, v_raw, k_cache, v_cache, offset, n_head):
+        return decode_attn.fused_step_plain(q, k_raw, v_raw, k_cache, v_cache, offset,
+                                            n_head), k_cache, v_cache
+
+    flash64.flash64_attention = flash64.flash64_attention_plain
+    decode_attn.fused_step = plain_step
+    decode_mlp._launch = decode_mlp.fused_mlp_plain
+
+    def restore():
+        flash64.flash64_attention, decode_attn.fused_step, decode_mlp._launch = saved
+
+    return restore
+
+
+def phase_serving_int8(torch, wt, mel, options, rng):
+    """small b8 in the int8 modes: greedy int8 with the decode-MLP kernel
+    off and on, beam 15 int8kv, the Flamingo beam 15 int8kv; fp32 int8
+    greedy through the kernels vs the plain versions; bf16 int8 vs bf16."""
+    import numpy as np
+
+    from whisper_flamingo_tpu_torch.ops import decode_attn, decode_mlp, flash64
+
+    n_steps = SAMPLE_LEN - 1
+    model = wt.load_model("small", device="cuda", seed=0)
+    L, La = model.dims.n_text_layer, model.dims.n_audio_layer
+    runs = {}
+    try:
+        for name, quantize, beam, enabled, iters in (
+                ("greedy_int8", "int8", None, False, 3), ("greedy_int8_mlp", "int8", None, True, 3),
+                ("beam15_int8kv", "int8kv", BEAM, False, 2)):
+            decode_mlp.ENABLED = enabled
+            task = wt.DecodingTask(model, options(True, beam, quantize=quantize))
+            want = {"flash64": La, "decode_attn": 0 if quantize == "int8kv" else L * n_steps,
+                    "decode_mlp": L * (n_steps + 1) if enabled else 0}
+            _, got = _counted(torch, task, mel, n_steps, want)
+            runs[name] = dict(_timed(torch, task, mel, iters), launches=got)
+            emit({"phase": f"serving_{name}_small_b{BATCH}", **runs[name]})
+        # fp32 int8 greedy with the decode-MLP kernel on: kernels vs plain
+        decode_mlp.ENABLED = True
+        kernel_res = wt.DecodingTask(model, options(False, None, quantize="int8")).run(mel)
+        restore = _plain_kernels(decode_attn, decode_mlp, flash64)
+        try:
+            plain_res = wt.DecodingTask(model, options(False, None, quantize="int8")).run(mel)
+        finally:
+            restore()
+    finally:
+        decode_mlp.ENABLED = False
+    same = [k.tokens == p.tokens for k, p in zip(kernel_res, plain_res)]
+    lp_diff = max(abs(k.avg_logprob - p.avg_logprob) for k, p in zip(kernel_res, plain_res))
+    # bf16 int8 against bf16 unquantized greedy: the share of equal positions
+    int8_tok = [r.tokens for r in wt.DecodingTask(model, options(True, None, quantize="int8"))
+                .run(mel)]
+    bf16_tok = [r.tokens for r in wt.DecodingTask(model, options(True, None)).run(mel)]
+    agree = float(np.mean([a == b for x, y in zip(int8_tok, bf16_tok) for a, b in zip(x, y)]))
+    emit({"phase": "serving_fp32_int8_kernel_vs_plain", "tokens_equal": same,
+          "avg_logprob_max_diff": lp_diff, "bf16_int8_vs_bf16_position_agreement": agree})
+    if not all(same):
+        raise AssertionError("fp32 int8 greedy: kernel tokens differ from plain tokens")
+    del model, task
+    torch.cuda.empty_cache()
+
+    fmodel = wt.load_model("small", device="cuda", seed=0, add_gated_x_attn=1, num_langs=1,
+                           bert_dim=768)
+    with torch.no_grad():
+        for blk in fmodel.decoder.blocks:
+            blk.ff_gate.fill_(1.0)
+            for sub in blk.gated_x_attn_layers:
+                sub.attn_gate.fill_(1.0)
+    xt = torch.from_numpy(rng.standard_normal((1, BATCH, 64, 768)).astype(np.float32)).cuda()
+    task = wt.DecodingTask(fmodel, options(True, BEAM, quantize="int8kv"))
+    _, got = _counted(torch, task, mel, n_steps,
+                      {"flash64": La, "decode_attn": 0, "decode_mlp": 0}, xt)
+    runs["flamingo_beam15_int8kv"] = dict(_timed(torch, task, mel, 2, xt), launches=got)
+    emit({"phase": f"serving_flamingo_beam15_int8kv_small_b{BATCH}",
+          **runs["flamingo_beam15_int8kv"]})
+    del fmodel, task
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _device_busy(torch, prof):
+    """The sum of the kernels' device times in a profile, ms."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    return sum(dev_us(e) for e in events) / 1e3, sum(e.count for e in events)
+
+
+def phase_continuous_batching(torch, wt, eot):
+    """ContinuousBatcher on small, int8, 8 slots, chunk 16: 32 requests of
+    the synthetic audio with budgets drawn from 16-96 tokens."""
+    import numpy as np
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_flamingo_tpu_torch.serving import ContinuousBatcher
+
+    n_req, slots = CB_REQUESTS, 8
+    waves = list(np.random.default_rng(0).standard_normal((n_req, 480_000))
+                 .astype(np.float32) * 0.05)
+    caps = [int(c) for c in np.random.default_rng(0).integers(16, 97, n_req)]
+    model = wt.load_model("small", device="cuda", seed=0)
+
+    def opts(fp16):
+        return wt.DecodingOptions(language="en", without_timestamps=True, sample_len=max(caps),
+                                  fp16=fp16, quantize="int8", suppress_tokens=f"-1,{eot}")
+
+    cb = ContinuousBatcher(model, opts(True), slots=slots, chunk=16)
+    cb.warmup()
+    out = {"requests": n_req, "slots": slots, "chunk": 16, "tokens": sum(caps)}
+    for name, pooled in (("poll", False), ("run_queued_lpt", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cb.transcribe_segments(waves, max_tokens=caps, pooled=pooled)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if [len(r.tokens) for r in res] != caps:
+            raise AssertionError(f"continuous batching {name}: lengths differ from the budgets")
+        out[name] = {"wall_s": wall, "tok_s": sum(caps) / wall,
+                     "audio_s_per_wall_s": n_req * 30.0 / wall}
+    # device activity only, no trace file: the run makes ~180,000 launches
+    for rid, w in enumerate(waves):
+        cb.submit(w, caps[rid])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cb.run_queued(sort_admission=True)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, launches = _device_busy(torch, prof)
+    unprofiled_ms = out["run_queued_lpt"]["wall_s"] * 1e3
+    out["profile_run_queued"] = {
+        "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms, "kernel_launches": launches,
+        "idle_share_vs_unprofiled_run": 1.0 - busy_ms / unprofiled_ms,
+        "idle_share_profiled": 1.0 - busy_ms / wall_ms,
+    }
+    emit({"phase": f"continuous_batching_int8_small_{n_req}req", **out})
+
+    # fp32 gate: every request equals its own per-utterance fp32 decode
+    t_gate = time.perf_counter()
+    cb32 = ContinuousBatcher(model, opts(False), slots=slots, chunk=16)
+    got = cb32.transcribe_segments(waves, max_tokens=caps, pooled=True)
+    task = wt.DecodingTask(model, opts(False))
+    diffs = []
+    for i, w in enumerate(waves):
+        mel = wt.log_mel_spectrogram(w, device="cuda")[None]
+        ref = task.run(mel)[0].tokens[:caps[i]]
+        if got[i].tokens != ref:
+            pos = next(p for p, (a, b) in enumerate(zip(got[i].tokens, ref)) if a != b)
+            diffs.append({"request": i, "position": pos, "cb": got[i].tokens[pos],
+                          "decode": ref[pos], "logit_margin": _logit_margin(
+                              torch, task, mel, ref[:pos], ref[pos], got[i].tokens[pos])})
+    emit({"phase": "continuous_batching_fp32_vs_decode", "requests": n_req,
+          "requests_equal": n_req - len(diffs), "first_differences": diffs,
+          "gate_s": time.perf_counter() - t_gate})
+    if diffs:
+        raise AssertionError(f"continuous batching fp32: {len(diffs)} requests differ from "
+                             f"their per-utterance decode: {diffs}")
+    del model, cb, cb32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _logit_margin(torch, task, mel, prefix, tok_a, tok_b):
+    """The fp32 logit gap between two candidate tokens after ``prefix``,
+    teacher-forced through the task's (int8) decode weights."""
+    from whisper_flamingo_tpu_torch.models.whisper import decoder_apply, encoder_apply
+
+    model = task.model
+    toks = torch.tensor([list(task.initial_tokens) + list(prefix)], device="cuda")
+    feats = encoder_apply(model, model.dims, mel)
+    with torch.no_grad():
+        logits, _ = decoder_apply(task.params, model.dims, toks, feats)
+    last = logits[0, -1]
+    return abs(last[tok_a].item() - last[tok_b].item())
+
+
+def phase_speculative(torch, wt, mel, options):
+    """small verifier, tiny draft (seeds 0 and 1), greedy b8, draft_len 4."""
+    from whisper_flamingo_tpu_torch.speculative import SpeculativeDecodingTask
+
+    K = 4
+    model = wt.load_model("small", device="cuda", seed=0)
+    draft = wt.load_model("tiny", device="cuda", seed=1)
+    task = SpeculativeDecodingTask(model, draft, options(True, None), draft_len=K)
+    task.run(mel)  # warm-up
+    out = _timed(torch, task, mel, 2)
+    st = task.last_stats
+    out.update(draft_len=K, stats=st,
+               acceptance_rate=(st["accepted_tokens"] - st["row_rounds"]) / (K * st["row_rounds"]),
+               verifier_passes_per_token=(st["rounds"] + 1) / SAMPLE_LEN)
+    spec32 = [r.tokens for r in SpeculativeDecodingTask(model, draft, options(False, None),
+                                                        draft_len=K).run(mel)]
+    greedy32 = [r.tokens for r in wt.DecodingTask(model, options(False, None)).run(mel)]
+    same = [a == b for a, b in zip(spec32, greedy32)]
+    out["fp32_tokens_equal_greedy"] = same
+    emit({"phase": f"speculative_small_tiny_b{BATCH}", **out})
+    if not all(same):
+        raise AssertionError("speculative fp32: tokens differ from plain greedy")
+    del model, draft, task
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -658,7 +986,7 @@ def main() -> int:
     import numpy as np
 
     import whisper_flamingo_tpu_torch as wt
-    from whisper_flamingo_tpu_torch.ops import cuda_build, decode_attn, dtw, flash64
+    from whisper_flamingo_tpu_torch.ops import cuda_build, decode_attn, decode_mlp, dtw, flash64
     from whisper_flamingo_tpu_torch.tokenizer import get_tokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -691,55 +1019,24 @@ def main() -> int:
 
     n_steps = SAMPLE_LEN - 1  # incremental steps after the prefill
 
-    def options(fp16, beam):
+    def options(fp16, beam, quantize=None):
         return wt.DecodingOptions(
             language="en", without_timestamps=True, sample_len=SAMPLE_LEN, fp16=fp16,
-            beam_size=beam, suppress_tokens=f"-1,{eot}",
+            beam_size=beam, suppress_tokens=f"-1,{eot}", quantize=quantize,
         )
 
-    def counted_run(task, xt=None):
-        flash64.flash64_forward.launches = 0
-        decode_attn.fused_step.launches = 0
-        results = task.run(mel, xt=xt)
-        torch.cuda.synchronize()
-        counts = (flash64.flash64_forward.launches, decode_attn.fused_step.launches)
-        n_layers = task.model.dims.n_text_layer
-        want = (task.model.dims.n_audio_layer, n_layers * n_steps)
-        if counts != want:
-            raise AssertionError(f"kernel launches {counts}, expected {want}")
-        for r in results:
-            if len(r.tokens) != SAMPLE_LEN or not np.isfinite(r.avg_logprob):
-                raise AssertionError(f"bad result: {len(r.tokens)} tokens, {r.avg_logprob}")
-        return results, counts
-
-    def timed(task, iters, xt=None):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            results = task.run(mel, xt=xt)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        assert all(len(r.tokens) == SAMPLE_LEN for r in results)
-        return {"rtf": iters * BATCH * 30.0 / elapsed,
-                "tok_s": iters * BATCH * SAMPLE_LEN / elapsed,
-                "s_per_batch": elapsed / iters, "iters": iters}
-
     model = wt.load_model("small", device="cuda", seed=0)
+    want = {"flash64": model.dims.n_audio_layer, "decode_attn": model.dims.n_text_layer * n_steps,
+            "decode_mlp": 0}
 
     # fp32 greedy: through the kernels, then through the plain versions
     task = wt.DecodingTask(model, options(False, None))
-    kernel_res, _ = counted_run(task)
-    saved = flash64.flash64_attention, decode_attn.fused_step
-
-    def plain_step(q, k_raw, v_raw, k_cache, v_cache, offset, n_head):
-        return decode_attn.fused_step_plain(q, k_raw, v_raw, k_cache, v_cache, offset,
-                                            n_head), k_cache, v_cache
-
-    flash64.flash64_attention = flash64.flash64_attention_plain
-    decode_attn.fused_step = plain_step
+    kernel_res, _ = _counted(torch, task, mel, n_steps, want)
+    restore = _plain_kernels(decode_attn, decode_mlp, flash64)
     try:
         plain_res = wt.DecodingTask(model, options(False, None)).run(mel)
     finally:
-        flash64.flash64_attention, decode_attn.fused_step = saved
+        restore()
     same = [k.tokens == p.tokens for k, p in zip(kernel_res, plain_res)]
     lp_diff = max(abs(k.avg_logprob - p.avg_logprob) for k, p in zip(kernel_res, plain_res))
     emit({"phase": "fp32_greedy_kernel_vs_plain", "tokens_equal": same,
@@ -751,9 +1048,8 @@ def main() -> int:
     runs = {}
     for name, beam, iters in (("greedy", None, 3), ("beam15", BEAM, 2)):
         task = wt.DecodingTask(model, options(True, beam))
-        _, counts = counted_run(task)
-        runs[name] = dict(timed(task, iters), flash64_launches=counts[0],
-                          decode_attn_launches=counts[1])
+        _, got = _counted(torch, task, mel, n_steps, want)
+        runs[name] = dict(_timed(torch, task, mel, iters), launches=got)
         emit({"phase": f"bf16_{name}_small_b{BATCH}", **runs[name]})
     del model, task
     torch.cuda.empty_cache()
@@ -768,22 +1064,38 @@ def main() -> int:
                 sub.attn_gate.fill_(1.0)
     xt = torch.from_numpy(rng.standard_normal((1, BATCH, 64, 768)).astype(np.float32)).cuda()
     task = wt.DecodingTask(fmodel, options(True, BEAM))
-    _, counts = counted_run(task, xt)
-    runs["flamingo_beam15"] = dict(timed(task, 2, xt), flash64_launches=counts[0],
-                                   decode_attn_launches=counts[1])
+    _, got = _counted(torch, task, mel, n_steps, want, xt)
+    runs["flamingo_beam15"] = dict(_timed(torch, task, mel, 2, xt), launches=got)
     emit({"phase": f"bf16_flamingo_beam15_small_b{BATCH}", **runs["flamingo_beam15"]})
     del fmodel, task
     torch.cuda.empty_cache()
 
+    seconds = {"1-4": time.perf_counter() - t_start}
+
+    def mark(name):
+        seconds[name] = time.perf_counter() - t_start - sum(seconds.values())
+
     # -- 5. the DTW kernel; 6. long-form transcribe with word timestamps -------
     dw = phase_dtw(torch, dtw)
     longform = phase_longform(torch, wt, eot)
+    mark("5-6")
 
     # -- 7.-10. training: the backward kernels, the train step, the recipe ----
     fb = phase_flash64_bwd(torch, flash64, gen)
     phase_train_small(torch, wt, flash64)
     phase_train_fp32_kernel_vs_plain(torch, wt, flash64)
     recipe = phase_recipe(torch, flash64)
+    mark("7-10")
+
+    # -- 11.-14. serving: the decode-MLP kernel, the int8 modes, continuous
+    # batching, speculative decoding ---------------------------------------
+    dm = phase_decode_mlp(torch, decode_mlp, gen)
+    serving = phase_serving_int8(torch, wt, mel, options, rng)
+    mark("11-12")
+    phase_continuous_batching(torch, wt, eot)
+    mark("13")
+    phase_speculative(torch, wt, mel, options)
+    mark("14")
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -793,13 +1105,13 @@ def main() -> int:
 
     kernels = [
         entry("flash64_fwd", "whisper_flamingo_tpu_torch/csrc/flash64_fwd.cu",
-              "whisper_flamingo_tpu/ops/flash64.py:75", runs["greedy"]["flash64_launches"], fl),
+              "whisper_flamingo_tpu/ops/flash64.py:75", runs["greedy"]["launches"]["flash64"], fl),
         entry("decode_attn", "whisper_flamingo_tpu_torch/csrc/decode_attn.cu",
               "whisper_flamingo_tpu/ops/decode_attn.py:153",
-              runs["greedy"]["decode_attn_launches"], da8),
+              runs["greedy"]["launches"]["decode_attn"], da8),
         entry("decode_attn_rows120", "whisper_flamingo_tpu_torch/csrc/decode_attn.cu",
               "whisper_flamingo_tpu/ops/decode_attn.py:211",
-              runs["beam15"]["decode_attn_launches"], da120),
+              runs["beam15"]["launches"]["decode_attn"], da120),
         entry("dtw", "whisper_flamingo_tpu_torch/csrc/dtw.cu",
               "whisper_flamingo_tpu/ops/dtw_pallas.py:48", longform["launches"]["dtw"], dw),
         entry("flash64_fwd_lse", "whisper_flamingo_tpu_torch/csrc/flash64_fwd.cu",
@@ -812,8 +1124,11 @@ def main() -> int:
               {"max_abs_err": max(fb["max_abs_err"].values()), "ms": fb["bwd_ms"],
                "plain_ms": fb["bwd_plain_ms"], "bound_ms": fb["bwd_bound_ms"],
                "bound_by": fb["bwd_bound_by"], "library_ms": fb["sdpa_bwd_ms"]}),
+        entry("decode_mlp", "whisper_flamingo_tpu_torch/csrc/decode_mlp.cu",
+              "whisper_flamingo_tpu/ops/decode_mlp.py:70",
+              serving["greedy_int8_mlp"]["launches"]["decode_mlp"], dm),
     ]
-    emit({"phase": "summary", "total_s": time.perf_counter() - t_start})
+    emit({"phase": "summary", "total_s": time.perf_counter() - t_start, "phase_s": seconds})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

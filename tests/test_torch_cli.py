@@ -1,6 +1,7 @@
 """The port's CLI: ``python -m whisper_flamingo_tpu_torch`` on the CPU writes
-every output format with word timestamps; the flags of later slices raise;
-with no card the default device raises."""
+every output format with word timestamps; the serving flags
+(``--draft_model``, ``--quantize``) run; with no card the default device
+raises."""
 
 import json
 import os
@@ -47,12 +48,23 @@ def test_cli_writes_every_format_with_words(tmp_path):
     assert all("words" in s for s in data["segments"])
 
 
-@pytest.mark.parametrize("flag", [["--draft_model", "tiny"], ["--quantize", "int8"]])
+@pytest.mark.parametrize("flag", [["--draft_model", "debug"], ["--quantize", "int8"]])
 def test_cli_flags_of_later_slices_raise(tmp_path, monkeypatch, flag):
+    """The serving flags of slice 4 are ported: speculative decoding with a
+    draft model, and the int8 mode, each write the transcript."""
     monkeypatch.setattr(sys, "argv", ["whisper_flamingo_tpu_torch", _wav(tmp_path / "y.wav", 1),
-                                      "--model", "debug", "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                      "--model", "debug", "--device", "cpu", "--language", "en",
+                                      "--beam_size", "None", "--best_of", "None",
+                                      "--temperature_increment_on_fallback", "None",
+                                      "--verbose", "False", "--output_format", "json",
+                                      "--threads", "1", "--output_dir", str(tmp_path), *flag])
+    threads = torch.get_num_threads()
+    try:
         tcli.cli()
+    finally:
+        torch.set_num_threads(threads)
+    data = json.loads((tmp_path / "y.json").read_text())
+    assert data["language"] == "en" and "segments" in data
 
 
 def test_cli_defaults_to_the_card(tmp_path, monkeypatch):

@@ -6,7 +6,8 @@ import) and run on the card with
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances as in ``chip_smoke.py``: fp32 1e-5 (sums in another order),
-bf16 1e-2 / 2e-2 (a few bf16 ulps of outputs of order 1); the flash64
+bf16 1e-2 / 2e-2 (a few bf16 ulps of outputs of order 1; the decode MLP's
+of its largest output); the flash64
 backward's gradients 1e-4 (fp32) and 1e-2 (bf16) of their largest
 magnitude; the updated
 caches must be bit-equal (the same one multiplication per element), and so
@@ -210,3 +211,82 @@ def test_dtw_kernel_refuses_what_it_cannot_take(gen):
         dtw.dtw_trace(torch.zeros(5, 8, device="cuda").t())
     with pytest.raises(ValueError):  # not fp32
         dtw.dtw_trace(torch.zeros(5, 8, device="cuda", dtype=torch.bfloat16))
+
+
+def _mlp_weights(gen, d, f, dtype, int8):
+    """fc1 (f, d) and fc2 (d, f) weights of N(0, 1/fan_in), biases 0.1 N(0, 1);
+    int8: quantized per output channel, as quantize_decode_params does."""
+    from whisper_flamingo_tpu_torch.ops.quant import quantize_linear_params
+
+    w1 = torch.randn(f, d, generator=gen, device="cuda") * d ** -0.5
+    w2 = torch.randn(d, f, generator=gen, device="cuda") * f ** -0.5
+    b1, b2 = (torch.randn(n, generator=gen, device="cuda").to(dtype) * 0.1 for n in (f, d))
+    if int8:
+        (w1, s1), (w2, s2) = quantize_linear_params(w1), quantize_linear_params(w2)
+        return w1, b1, w2, b2, s1, s2
+    return w1.to(dtype), b1, w2.to(dtype), b2, None, None
+
+
+@pytest.mark.parametrize("dtype,int8", [(torch.float32, False), (torch.bfloat16, False),
+                                        (torch.bfloat16, True), (torch.float32, True)])
+@pytest.mark.parametrize("rows", [8, 32, 120])
+def test_decode_mlp_kernel_matches_plain(gen, dtype, int8, rows):
+    """At small's widths (d 768, f 3072) and the decode row counts; the
+    tolerance is of the largest output (fp32 sums in another order; in bf16
+    a few activations round the other way, then one bf16 rounding)."""
+    from whisper_flamingo_tpu_torch.ops import decode_mlp
+
+    w1, b1, w2, b2, s1, s2 = _mlp_weights(gen, 768, 3072, dtype, int8)
+    x = torch.randn(rows, 768, generator=gen, device="cuda").to(dtype)
+    before = decode_mlp.fused_mlp.launches
+    out = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+    again = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+    assert decode_mlp.fused_mlp.launches == before + 2
+    assert out.dtype == dtype and out.shape == x.shape and torch.equal(out, again)
+    ref = decode_mlp.fused_mlp_plain(x, w1, b1, w2, b2, s1, s2)
+    scale = max(ref.float().abs().max().item(), 1.0)
+    assert (out.float() - ref.float()).abs().max().item() <= {torch.float32: 1e-5,
+                                                             torch.bfloat16: 1e-2}[dtype] * scale
+
+
+def test_decode_mlp_kernel_refuses_what_it_cannot_take(gen):
+    from whisper_flamingo_tpu_torch.ops import decode_mlp
+
+    w1, b1, w2, b2, _, _ = _mlp_weights(gen, 72, 288, torch.float32, False)
+    x = torch.randn(4, 72, generator=gen, device="cuda")
+    with pytest.raises(ValueError):  # d % 16
+        decode_mlp._launch(x, w1, b1, w2, b2, None, None)
+    w1, b1, w2, b2, _, _ = _mlp_weights(gen, 64, 256, torch.float32, False)
+    x = torch.randn(4, 64, generator=gen, device="cuda")
+    with pytest.raises(TypeError):  # mixed dtypes
+        decode_mlp._launch(x.bfloat16(), w1, b1.bfloat16(), w2, b2.bfloat16(), None, None)
+    with pytest.raises(ValueError):  # not contiguous
+        decode_mlp._launch(x, w2.t(), b1, w2, b2, None, None)
+
+
+def test_debug_int8_decode_kernel_tokens_equal_plain(gen, monkeypatch):
+    """fp32 int8 greedy with the decode-MLP kernel on, at debug widths with
+    d_head 64: tokens through the kernels equal the plain versions'."""
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.models.dims import ModelDimensions
+    from whisper_flamingo_tpu_torch.ops import decode_mlp
+
+    dims = ModelDimensions(
+        n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+        n_vocab=51865, n_text_ctx=448, n_text_head=2, n_text_state=128, n_text_layer=2,
+    )
+    model = wt.init_params(torch.Generator(device="cuda").manual_seed(1), dims, device="cuda")
+    mel = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, 80, 3000)).astype(np.float32) * 0.5
+    ).cuda()
+    monkeypatch.setattr(decode_mlp, "ENABLED", True)
+    opts = wt.DecodingOptions(language="en", fp16=False, sample_len=12, quantize="int8")
+    before = decode_mlp.fused_mlp.launches
+    got = wt.DecodingTask(model, opts).run(mel)
+    assert decode_mlp.fused_mlp.launches > before
+    with monkeypatch.context() as m:
+        m.setattr(flash64, "flash64_attention", flash64.flash64_attention_plain)
+        m.setattr(decode_attn, "fused_step", lambda *a: (decode_attn.fused_step_plain(*a), a[3], a[4]))
+        m.setattr(decode_mlp, "_launch", decode_mlp.fused_mlp_plain)
+        ref = wt.DecodingTask(model, opts).run(mel)
+    assert [g.tokens for g in got] == [r.tokens for r in ref]

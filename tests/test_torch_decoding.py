@@ -125,7 +125,11 @@ def test_sampling_is_seeded_and_single_segment_decode(models, mel):
 
 
 def test_int8_modes_not_ported(models):
+    """The int8 modes are ported (``tests/test_torch_quant.py`` holds them
+    against JAX): both build a task, and another mode raises."""
     _, tmodel = models["plain"]
     for mode in ("int8", "int8kv"):
-        with pytest.raises(NotImplementedError):
-            DecodingTask(tmodel, DecodingOptions(quantize=mode))
+        task = DecodingTask(tmodel, DecodingOptions(language="en", beam_size=2, quantize=mode))
+        assert task.params.decoder.blocks[0].mlp[0].w_q.dtype == torch.int8
+    with pytest.raises(ValueError, match="quantize"):
+        DecodingTask(tmodel, DecodingOptions(quantize="int4"))

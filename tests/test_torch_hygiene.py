@@ -27,6 +27,8 @@ import whisper_flamingo_tpu_torch.data.translations
 import whisper_flamingo_tpu_torch.training.optim, whisper_flamingo_tpu_torch.training.steps
 import whisper_flamingo_tpu_torch.training.trainer
 import whisper_flamingo_tpu_torch.recipes.common, whisper_flamingo_tpu_torch.recipes.whisper_ft
+import whisper_flamingo_tpu_torch.serving, whisper_flamingo_tpu_torch.speculative
+import whisper_flamingo_tpu_torch.ops.quant, whisper_flamingo_tpu_torch.ops.decode_mlp
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")]
@@ -60,7 +62,8 @@ def test_sources_name_no_jax_module():
                 "normalizers/basic", "normalizers/english", "ops/dtw", "ops/median",
                 "config", "profiling", "ops/spec_augment", "data/collator", "data/dataset",
                 "data/noise", "data/samplers", "data/translations", "training/optim",
-                "training/steps", "training/trainer", "recipes/common", "recipes/whisper_ft"):
+                "training/steps", "training/trainer", "recipes/common", "recipes/whisper_ft",
+                "serving", "speculative", "ops/quant", "ops/decode_mlp"):
         assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
     for path in _sources():
         with open(path) as fh:
@@ -112,6 +115,27 @@ def test_kernel_wrappers_raise_on_a_device_without_a_kernel():
     kc = torch.empty(2, 8, 64, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         decode_attn.fused_step(qd, qd, qd, kc, kc, 0, 1)
+    from whisper_flamingo_tpu_torch.ops import decode_mlp
+
+    with torch.device("meta"):
+        mlp = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.GELU(),
+                                  torch.nn.Linear(256, 64))
+    with pytest.raises(RuntimeError, match="no kernel"):  # the dispatch rule picks the kernel
+        decode_mlp.fused_mlp(mlp, torch.empty(2, 1, 64, device="meta"))
+
+
+def test_serving_entry_points_need_a_device(monkeypatch):
+    """The serving entry points run on the model's device: a model on the
+    card with no card raises with the port's message."""
+    import types
+
+    from whisper_flamingo_tpu_torch.serving import BatchTranscriber, ContinuousBatcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))
+    for entry in (BatchTranscriber, ContinuousBatcher):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(on_card)
 
 
 def test_training_modules_have_no_device_fallback():

@@ -12,6 +12,7 @@ inputs are numpy-seeded and go through both packages. Tolerances:
 """
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,29 @@ DIMS64 = ModelDimensions(
     n_mels=80, n_audio_ctx=200, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
     n_vocab=51865, n_text_ctx=64, n_text_head=2, n_text_state=128, n_text_layer=2,
 )
+
+
+@pytest.fixture(autouse=True)
+def hide_stub_triton(monkeypatch):
+    """The JAX package's reference-parity tests stub ``triton`` into
+    ``sys.modules`` (``tests/conftest.py``), and torch's non-reentrant
+    checkpoint (remat) asks whether triton is installed: it would take the
+    stub for the package. While a port test runs, the stub is hidden and
+    torch's cached answer cleared. The port's tests that reach remat import
+    this fixture."""
+    stubs = [n for n in ("triton", "triton.language")
+             if n in sys.modules and getattr(sys.modules[n], "__file__", None) is None]
+    from torch.utils import _triton
+
+    for name in stubs:
+        monkeypatch.delitem(sys.modules, name)
+    if stubs:
+        _triton.has_triton_package.cache_clear()
+        _triton.has_triton.cache_clear()
+    yield
+    if stubs:
+        _triton.has_triton_package.cache_clear()
+        _triton.has_triton.cache_clear()
 
 
 def port_from_jax(dims, extras_kw=None, seed=0, gate=None):

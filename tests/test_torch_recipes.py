@@ -20,6 +20,8 @@ from whisper_flamingo_tpu.config import TrainConfig as JConfig
 from whisper_flamingo_tpu_torch.config import TrainConfig
 from whisper_flamingo_tpu_torch.recipes import common, whisper_ft
 
+from test_torch_model import hide_stub_triton  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "configs", "smoke", "ft.yaml")
 

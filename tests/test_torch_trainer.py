@@ -37,6 +37,8 @@ from whisper_flamingo_tpu_torch.training.optim import whisper_optimizer
 from whisper_flamingo_tpu_torch.training.steps import TrainState, make_ce_train_step, make_eval_step
 from whisper_flamingo_tpu_torch.training.trainer import CheckpointManager, Trainer
 
+from test_torch_model import hide_stub_triton  # noqa: F401
+
 TINY = ModelDimensions(
     n_mels=80, n_audio_ctx=128, n_audio_state=64, n_audio_head=2,
     n_audio_layer=1, n_vocab=51865, n_text_ctx=448, n_text_head=2,

@@ -39,6 +39,8 @@ from whisper_flamingo_tpu_torch.models import whisper as tw
 from whisper_flamingo_tpu_torch.models.dims import ModelDimensions
 from whisper_flamingo_tpu_torch.training import optim, steps
 
+from test_torch_model import hide_stub_triton  # noqa: F401
+
 DIMS = ModelDimensions(
     n_mels=80, n_audio_ctx=50, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
     n_vocab=51865, n_text_ctx=64, n_text_head=2, n_text_state=128, n_text_layer=2,

@@ -106,10 +106,16 @@ def test_transcribe_matches_jax(models, wav, monkeypatch, name, opts, patch):
 
 
 def test_transcribe_bound_to_the_model_and_draft_model_raises(models, wav):
+    """``transcribe`` is bound to the model; ``draft_model`` (ported now)
+    speculates the greedy rung and gives the plain run's segments."""
     _, tmodel = models
     assert tmodel.transcribe.__func__ is wt.transcribe
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wt.transcribe(tmodel, wav, language="en", draft_model=tmodel)
+    kw = dict(language="en", temperature=0.0, sample_len=8, fp16=False,
+              condition_on_previous_text=False)
+    plain = wt.transcribe(tmodel, wav, **kw)
+    spec = wt.transcribe(tmodel, wav, draft_model=tmodel, draft_len=3, **kw)
+    assert [s["tokens"] for s in spec["segments"]] == [s["tokens"] for s in plain["segments"]]
+    assert spec["text"] == plain["text"]
 
 
 def _simple_result(words: bool):

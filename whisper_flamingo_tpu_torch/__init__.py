@@ -8,10 +8,13 @@ window with the temperature fallback and prompt chaining, word
 timestamps by cross-attention DTW, the subtitle writers, the CLI
 ``python -m whisper_flamingo_tpu_torch``), with the text normalizers and
 error-rate metrics, and audio-only Whisper fine-tuning (``config``,
-``data/``, ``training/``, ``profiling``, ``recipes/``). The kernels of
-those paths (encoder attention forward and backward, decode attention,
-the DTW wavefront) are CUDA C++ for ``sm_90a`` under ``csrc/``, built with
-``nvcc`` at first use.
+``data/``, ``training/``, ``profiling``, ``recipes/``), and serving: the
+int8 / int8kv modes (``DecodingOptions(quantize=...)``), speculative
+decoding (``speculative``, ``transcribe(draft_model=...)``) and the
+``serving`` module's ``BatchTranscriber`` and ``ContinuousBatcher``. The
+kernels of those paths (encoder attention forward and backward, decode
+attention, the decode MLP, the DTW wavefront) are CUDA C++ for ``sm_90a``
+under ``csrc/``, built with ``nvcc`` at first use.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no card and no device named they raise. Fine-tuning runs as
@@ -23,9 +26,8 @@ on the card unless the config or an override says ``device=cpu``
 ``python3 chip_smoke.py`` drives it on the card. The package imports
 torch, numpy, tiktoken, regex and yaml, never JAX or the JAX package.
 
-Not ported yet (see ROADMAP.md): serving, speculative decoding, the int8
-modes, the Flamingo, KD, prompt and AV recipes, the BERT / AV-HuBERT /
-visual / legacy models and parallelism.
+Not ported yet (see ROADMAP.md): the Flamingo, KD, prompt and AV recipes,
+the BERT / AV-HuBERT / visual / legacy models and parallelism.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ from .audio import load_audio, log_mel_spectrogram, pad_or_trim  # noqa: F401
 from .decoding import DecodingOptions, DecodingResult, DecodingTask, decode, detect_language  # noqa: F401
 from .models.dims import MODEL_DIMS, ModelDimensions, available_models  # noqa: F401
 from .models.whisper import ModelExtras, Whisper, init_params  # noqa: F401
+from .serving import BatchTranscriber, ContinuousBatcher  # noqa: F401
+from .speculative import SpeculativeDecodingTask, decode_speculative  # noqa: F401
 from .transcribe import transcribe
 from .utils import resolve_device
 

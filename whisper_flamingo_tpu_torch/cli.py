@@ -7,9 +7,12 @@ differences:
   decode and the word timing run there; ``--device cpu`` runs on the CPU;
 - ``--fp16 True`` selects bfloat16 compute on the card;
 - ``--threads`` sets torch's CPU threads, as the reference CLI does;
-- ``--model`` also takes ``debug``, the small random model of the tests;
-- ``--draft_model`` (speculative decoding) and ``--quantize`` (the int8
-  modes) are not ported yet and raise ``NotImplementedError``.
+- ``--model`` (and ``--draft_model``) also take ``debug``, the small
+  random model of the tests.
+
+``--quantize int8`` / ``int8kv`` selects the int8 serving modes;
+``--draft_model`` (with ``--draft_len``) decodes the greedy rung
+speculatively.
 
 A file that fails to transcribe is reported and skipped, as in the JAX
 package.
@@ -80,21 +83,17 @@ def cli():
     parser.add_argument("--max_words_per_line", type=optional_int, default=None)
     parser.add_argument("--quantize", type=optional_str, default=None,
                         choices=(None, "int8", "int8kv"),
-                        help="the int8 decode modes: not ported yet")
+                        help="store the decode-loop weights and K/V slabs int8; int8kv also "
+                             "the decode self cache (the beam-mode variant)")
     parser.add_argument("--draft_model", type=optional_str, default=None,
-                        help="speculative decoding's draft model: not ported yet")
-    parser.add_argument("--draft_len", type=int, default=4)
+                        help="draft model name or path for speculative greedy decoding "
+                             "(e.g. tiny)")
+    parser.add_argument("--draft_len", type=int, default=4,
+                        help="tokens drafted per speculative round")
     parser.add_argument("--threads", type=int, default=0,
                         help="torch CPU threads (0: torch's default)")
 
     args = parser.parse_args().__dict__
-    if args.pop("quantize") is not None:
-        raise NotImplementedError("--quantize: the int8 modes are not ported yet (ROADMAP.md, slice 5)")
-    if args.pop("draft_model") is not None:
-        raise NotImplementedError(
-            "--draft_model: speculative decoding is not ported yet (ROADMAP.md, slice 5)"
-        )
-    args.pop("draft_len")
     if (threads := args.pop("threads")) > 0:
         torch.set_num_threads(threads)
     device: str = args.pop("device")
@@ -119,6 +118,10 @@ def cli():
         temperature = [temperature]
 
     model = load_model(model_name, device=device, download_root=model_dir)
+    if (draft_name := args.pop("draft_model")) is not None:
+        args["draft_model"] = load_model(draft_name, device=device, download_root=model_dir)
+    else:
+        args.pop("draft_len")
 
     writer = get_writer(output_format, output_dir)
     word_options = ["highlight_words", "max_line_count", "max_line_width",

@@ -11,20 +11,27 @@ patience rule), run on the device.
 The JAX ``while_loop`` becomes a Python loop over decoder steps. Each step
 reads one flag back from the device (has every row finished?), so the loop
 stops where the JAX loop stops; the bookkeeping stays on the device. The
-beam's self-cache reorder is an ``index_select`` over the written prefix.
-The incremental steps run the decode-attention kernel, the encoder the
-flash64 kernel.
+beam's self-cache reorder (with the int8kv scales) is an ``index_select``
+over the written prefix. The incremental steps run the decode-attention
+kernel (not under int8kv, as in JAX), the encoder the flash64 kernel.
 
-Left out: the int8 / int8kv serving modes (``quantize`` raises
-``NotImplementedError``), prompt-length bucketing (an XLA compile-count
-workaround), speculative decoding and the alignment programs, and the
-one-hot beam reorder. A bf16 run (``fp16=True``) decodes with a bf16 copy
-of the weights made once per task; the encoder reads the model's own
-weights, cast per layer, as the JAX encoder program does.
+``quantize="int8"`` decodes with int8 weights and int8 static slabs
+(``models.whisper.quantize_decode_params``, ``init_cache(quantize=True)``);
+``"int8kv"`` also stores the self cache int8 with per-(token, head)
+scales, the beam-mode variant (greedy warns, as in JAX). The logit filters
+take one length for every row, or a (N,) tensor of per-row lengths
+(speculative decoding and the continuous batcher), as JAX's vector form.
+
+Left out: prompt-length bucketing (an XLA compile-count workaround), the
+alignment programs, and the one-hot beam reorder. A bf16 run
+(``fp16=True``) decodes with a bf16 copy of the weights made once per
+task; the encoder reads the model's own weights, cast per layer, as the
+JAX encoder program does.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field, replace
 from functools import lru_cache
 from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Tuple, Union
@@ -71,7 +78,8 @@ class DecodingOptions:
     fp16: bool = True  # selects bfloat16 compute
     seed: int = 0
 
-    # the int8 serving modes ("int8", "int8kv") are not ported yet
+    # "int8": int8 decode weights and static K/V slabs; "int8kv": also the
+    # self cache (the beam-mode variant)
     quantize: Optional[str] = None
 
     # attach a host numpy copy of each result's encoder features
@@ -157,29 +165,36 @@ def _token_mask(tokens: Tuple[int, ...], v: int, device: torch.device) -> torch.
 
 
 def _apply_filters(cfg: _FilterConfig, logits: torch.Tensor, tokens: torch.Tensor,
-                   cur_len: int) -> torch.Tensor:
+                   cur_len: Union[int, torch.Tensor]) -> torch.Tensor:
     """All filters as masks over fp32 logits (N, V); ``tokens`` (N, L) holds
-    ``cur_len`` tokens per row (every row at the same length)."""
+    ``cur_len`` tokens per row: one int for every row, or a (N,) tensor of
+    per-row lengths (speculative decoding, the continuous batcher). Every
+    rule is written against the per-row broadcast, as in the JAX package."""
     n, v = logits.shape
     dev = logits.device
-    is_begin = cur_len == cfg.sample_begin
+    if isinstance(cur_len, torch.Tensor):
+        cur_len = cur_len.long()
+    else:
+        cur_len = torch.full((n,), cur_len, dtype=torch.long, device=dev)
+    is_begin = cur_len == cfg.sample_begin  # (N,)
+    neg = torch.full((), NEG_INF, device=dev)
 
     if cfg.apply_suppress and cfg.suppress_tokens:
         logits = logits + _token_mask(cfg.suppress_tokens, v, dev)[None]
-    if cfg.apply_blank and cfg.blank_tokens and is_begin:
-        logits = logits + _token_mask(cfg.blank_tokens, v, dev)[None]
+    if cfg.apply_blank and cfg.blank_tokens:
+        logits = torch.where(is_begin[:, None],
+                             logits + _token_mask(cfg.blank_tokens, v, dev)[None], logits)
 
     if cfg.apply_timestamps:
         ts_begin = cfg.timestamp_begin
         col = torch.arange(v, device=dev)[None]
-        neg = torch.full((), NEG_INF, device=dev)
         logits = torch.where(col == cfg.no_timestamps, neg, logits)
 
-        last = tokens[:, max(cur_len - 1, 0)]
-        penult = tokens[:, max(cur_len - 2, 0)]
+        last = tokens.gather(1, (cur_len - 1).clamp_min(0)[:, None])[:, 0]
+        penult = tokens.gather(1, (cur_len - 2).clamp_min(0)[:, None])[:, 0]
         n_sampled = cur_len - cfg.sample_begin
-        last_was_ts = (last >= ts_begin) & (n_sampled >= 1)
-        penult_was_ts = (penult >= ts_begin) | (n_sampled < 2)
+        last_was_ts = (n_sampled >= 1) & (last >= ts_begin)
+        penult_was_ts = (n_sampled < 2) | (penult >= ts_begin)
         # timestamps appear in pairs, except directly before EOT
         mask_a = last_was_ts & penult_was_ts  # next must be non-timestamp
         mask_b = last_was_ts & ~penult_was_ts  # next cannot be text
@@ -188,22 +203,21 @@ def _apply_filters(cfg: _FilterConfig, logits: torch.Tensor, tokens: torch.Tenso
 
         # timestamps must be monotonic and segments non-empty: sampled
         # timestamps are non-decreasing, so the max is the last one
-        if n_sampled > 0:
-            sampled = tokens[:, cfg.sample_begin: cur_len]
-            is_ts = sampled >= ts_begin
-            have_ts = is_ts.any(dim=1)
-            ts_max = torch.where(is_ts, sampled, torch.full_like(sampled, -1)).amax(dim=1)
-            ts_limit = torch.where(mask_b, ts_max, ts_max + 1)
-            logits = torch.where(
-                have_ts[:, None] & (col >= ts_begin) & (col < ts_limit[:, None]), neg, logits
-            )
+        pos = torch.arange(tokens.shape[1], device=dev)[None]
+        sampled = (pos >= cfg.sample_begin) & (pos < cur_len[:, None])
+        is_ts = sampled & (tokens >= ts_begin)
+        have_ts = is_ts.any(dim=1)
+        ts_max = torch.where(is_ts, tokens, torch.full_like(tokens, -1)).amax(dim=1)
+        ts_limit = torch.where(mask_b, ts_max, ts_max + 1)
+        logits = torch.where(
+            have_ts[:, None] & (col >= ts_begin) & (col < ts_limit[:, None]), neg, logits
+        )
 
         # at the very beginning: timestamps only, capped at max_initial
-        if is_begin:
-            logits = torch.where(col < ts_begin, neg, logits)
-            if cfg.max_initial_timestamp_index is not None:
-                last_allowed = ts_begin + cfg.max_initial_timestamp_index
-                logits = torch.where(col > last_allowed, neg, logits)
+        logits = torch.where(is_begin[:, None] & (col < ts_begin), neg, logits)
+        if cfg.max_initial_timestamp_index is not None:
+            last_allowed = ts_begin + cfg.max_initial_timestamp_index
+            logits = torch.where(is_begin[:, None] & (col > last_allowed), neg, logits)
 
         # if the total timestamp probability beats any text token, force one
         logprobs = torch.log_softmax(logits.float(), dim=-1)
@@ -285,12 +299,16 @@ class DecodingTask:
             raise ValueError("patience requires beam_size to be given")
         if options.length_penalty is not None and not (0 <= options.length_penalty <= 1):
             raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
-        if options.quantize in ("int8", "int8kv"):
-            raise NotImplementedError(
-                f"quantize={options.quantize!r}: the int8 serving modes are not ported yet"
-            )
-        if options.quantize is not None:
+        if options.quantize not in (None, "int8", "int8kv"):
             raise ValueError(f"quantize must be None, 'int8' or 'int8kv', got {options.quantize!r}")
+        if options.quantize == "int8kv" and options.beam_size is None:
+            # the int8 self cache takes the greedy step off the decode-attention
+            # kernel, and the greedy step is not bound by the self cache
+            warnings.warn(
+                "quantize='int8kv' without beam_size: int8kv is the beam-mode serving "
+                "variant; use 'int8' for greedy decoding",
+                stacklevel=3,
+            )
         return options
 
     def _get_initial_tokens(self) -> Tuple[int, ...]:
@@ -331,7 +349,9 @@ class DecodingTask:
     def params(self) -> "Whisper":
         """The decode-time weights (a compute-dtype copy, made once)."""
         if self._params is None:
-            self._params = prepare_decode_params(self.model, self.compute_dtype)
+            self._params = prepare_decode_params(
+                self.model, self.compute_dtype, quantize=self.options.quantize is not None
+            )
         return self._params
 
     # -- the decode loop ----------------------------------------------------
@@ -349,7 +369,9 @@ class DecodingTask:
 
         # the static K/V and the prefill run at batch B (prompts and
         # audio are the same across a row's beams)
-        cache = init_cache(params, dims, audio_features, xt=xt, max_len=max_len, dtype=dtype)
+        quantize = self.options.quantize
+        cache = init_cache(params, dims, audio_features, xt=xt, max_len=max_len, dtype=dtype,
+                           quantize=quantize is not None, quantize_self=quantize == "int8kv")
         logits, cache = decoder_apply(
             params, dims, init_tokens, cache=cache, offset=0, dtype=dtype,
             sequential_xt=sequential_xt,
@@ -361,8 +383,9 @@ class DecodingTask:
             no_speech_probs = torch.full((n_audio,), float("nan"), device=dev)
 
         # expand only the per-beam state to B * G rows
-        cache["k"] = cache["k"].repeat_interleave(G, dim=1)
-        cache["v"] = cache["v"].repeat_interleave(G, dim=1)
+        self_keys = [k for k in ("k", "v", "k_s", "v_s") if k in cache]
+        for key in self_keys:
+            cache[key] = cache[key].repeat_interleave(G, dim=1)
         last_logits = logits[:, -1].float().repeat_interleave(G, dim=0)
         tokens = torch.full((n_batch, max_len + 1), eot, dtype=torch.long, device=dev)
         tokens[:, :init_len] = init_tokens.repeat_interleave(G, dim=0)
@@ -435,7 +458,7 @@ class DecodingTask:
                 tokens[:, cur_len] = sel_token.reshape(-1)
                 sum_logprobs = sel_scores.reshape(-1)
                 # the surviving beams' self cache: only the written prefix matters
-                for key in ("k", "v"):
+                for key in self_keys:
                     pre = cache[key][:, :, :cur_len]
                     pre.copy_(pre.index_select(1, src_global))
                 completed = (fin_count >= C).all()

@@ -17,7 +17,15 @@ that tree and tensors, with the JAX package's names and numerics:
   stacked (n_langs, B, S, D) conditioning streams;
 - the tied-embedding logits are a float32 matmul of the compute-dtype
   operands (so bf16 inputs give JAX's bf16-inputs / fp32-accumulate
-  product).
+  product);
+- the int8 serving modes: :func:`quantize_decode_params` hangs int8
+  weights with per-output-channel scales (``w_q``/``w_s``) on the decode
+  copy's linears and an int8 lm head (``lm_head_q``/``lm_head_s``);
+  :func:`init_cache` stores the static slabs int8 with per-head scales,
+  and with ``quantize_self`` the self cache int8 with per-(token, head)
+  scales (int8kv);
+- with ``ops.decode_mlp.ENABLED`` the cached decoder's MLP goes through
+  the streaming decode-MLP kernel (:func:`..ops.decode_mlp.fused_mlp`).
 
 Layers are a ``ModuleList`` looped in Python (the JAX package stacked them
 for ``lax.scan``). The decode caches are dicts of stacked tensors:
@@ -28,12 +36,14 @@ holding the compute-dtype values, so the per-step cross-attention logits
 are fp32 without an upcast each step.
 
 Left out, each a TPU workaround or a later slice: ``CACHE_LOOP`` and
-``SELECTOR_SELF``, the in-loop one-hot beam reorder (``row_perm``; the
-decode loop reorders the self cache with ``index_select``), the
-transposed (B, H, Dh, T) slabs, the fused QKV projection, the int8 serving
-modes (``quantize_decode_params``), the streaming decode MLP kernel, the
-rematerialization policies other than full per-block recompute, and the
-legacy keyword conditioning (``embed_tokens_as_xt``).
+``SELECTOR_SELF`` (the selector form of many-row attention,
+``cached_selector_attention``, computes what ``cached_qkv_attention``
+computes), the in-loop one-hot beam reorder (``row_perm``; the decode loop
+reorders the self cache with ``index_select``), the transposed
+(B, H, Dh, T) slabs, the fused QKV projection (int8 quantizes q, k and v
+apart: per-output-channel scales give the fused weight's int8 values and
+scales), the rematerialization policies other than full per-block
+recompute, and the legacy keyword conditioning (``embed_tokens_as_xt``).
 
 Training runs autograd through :func:`encoder_apply` and the teacher-forced
 :func:`decoder_apply`; the decode paths (the cached decoder, :func:`init_cache`,
@@ -53,7 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import decode_attn
+from ..ops import decode_attn, decode_mlp
 from ..ops.attention import (
     cached_causal_mask,
     cached_qkv_attention,
@@ -62,6 +72,12 @@ from ..ops.attention import (
     qkv_attention,
     update_cache,
     xa_qkv_attention,
+)
+from ..ops.quant import (
+    quantize_int8,
+    quantize_linear_params,
+    quantize_tokenwise_kv,
+    quantized_matmul,
 )
 from ..utils import resolve_device
 from .dims import ModelDimensions
@@ -247,7 +263,14 @@ def layer_norm(p: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Ten
 
 
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Dense layer with the weights cast to the activation dtype."""
+    """Dense layer with the weights cast to the activation dtype. A layer
+    quantized by :func:`quantize_decode_params` carries ``w_q``/``w_s``
+    (int8 weight, per-output-channel scale) in place of its weight: the
+    product, then the scale, then the bias, each in x's dtype."""
+    w_q = getattr(p, "w_q", None)
+    if w_q is not None:
+        y = quantized_matmul(x, w_q, p.w_s)
+        return y if p.bias is None else y + p.bias.to(x.dtype)
     b = None if p.bias is None else p.bias.to(x.dtype)
     return F.linear(x, p.weight.to(x.dtype), b)
 
@@ -275,10 +298,12 @@ def attention_block(
     kv_src: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
     k_override: Optional[torch.Tensor] = None, v_override: Optional[torch.Tensor] = None,
     backend: str = "plain", return_qk: bool = False,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
 ):
     """Projected multi-head attention. ``kv_src`` selects cross-attention;
     ``k_override``/``v_override`` are cached head-split (B, H, T, Dh) slabs
-    with K pre-scaled. ``return_qk`` (no override) also returns the fp32
+    with K pre-scaled (int8 with per-head ``k_scale``/``v_scale`` in the
+    int8 modes). ``return_qk`` (no override) also returns the fp32
     logits, as ``(out, logits)``.
 
     Beam grouping: when the slab batch is smaller than the query batch
@@ -290,10 +315,11 @@ def attention_block(
         bq, t, d = q.shape
         b = k_override.shape[0]
         if b != bq:
-            out = xa_qkv_attention(q.reshape(b, (bq // b) * t, d), k_override, v_override, n_head)
+            out = xa_qkv_attention(q.reshape(b, (bq // b) * t, d), k_override, v_override,
+                                   n_head, k_scale, v_scale)
             out = out.reshape(bq, t, d)
         else:
-            out = xa_qkv_attention(q, k_override, v_override, n_head)
+            out = xa_qkv_attention(q, k_override, v_override, n_head, k_scale, v_scale)
         return linear(p.out, out)
     src = x if kv_src is None else kv_src
     k = linear(p.key, src)
@@ -346,8 +372,11 @@ def _gated_ff_only(p: ResidualAttentionBlock, x: torch.Tensor) -> torch.Tensor:
 def _gated_x_attn_cached(
     p: ResidualAttentionBlock, x: torch.Tensor, xt_k: torch.Tensor, xt_v: torch.Tensor,
     n_head: int, sequential: bool = False,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Gated x-attn over precomputed per-stream K/V (n_langs, B, H, S, Dh)."""
+    """Gated x-attn over precomputed per-stream K/V (n_langs, B, H, S, Dh);
+    in the int8 modes the slabs are int8 with per-stream, per-head scales
+    ``k_scale``/``v_scale`` (n_langs, B, H, 1, 1)."""
     x_origin = x
     total_delta = torch.zeros_like(x)
     for i in range(xt_k.shape[0]):
@@ -356,6 +385,8 @@ def _gated_x_attn_cached(
         attn_out = attention_block(
             sub.attn, layer_norm(sub.attn_ln, src), n_head,
             k_override=xt_k[i], v_override=xt_v[i],
+            k_scale=None if k_scale is None else k_scale[i],
+            v_scale=None if v_scale is None else v_scale[i],
         )
         if sequential:
             x = x + attn_out * _gate(sub.attn_gate, x)
@@ -443,14 +474,20 @@ def _prepare_xt(params: Whisper, dims: ModelDimensions, xt: torch.Tensor, dtype)
 def init_cache(
     params: Whisper, dims: ModelDimensions, audio_features: torch.Tensor, *,
     xt: Optional[torch.Tensor] = None, max_len: Optional[int] = None,
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, quantize: bool = False, quantize_self: bool = False,
 ) -> Cache:
     """Preallocate the decode cache and precompute all static K/V.
 
     The audio cross-attention K/V (and, with conditioning streams, the
     gated x-attn K/V) depend only on the encoder output and the streams, so
     they are computed once here. The self cache is zeros (L, B, T, D) with
-    T = ``max_len`` (default ``n_text_ctx``)."""
+    T = ``max_len`` (default ``n_text_ctx``).
+
+    With ``quantize`` the static slabs are int8 with one float32 scale per
+    head over (T, Dh): ``xa_k_s``/``xa_v_s`` (L, B, H, 1, 1) and
+    ``xt_k_s``/``xt_v_s`` (L, n_langs, B, H, 1, 1). With ``quantize_self``
+    (int8kv) the self cache is int8 too, with per-(token, head) scales
+    ``k_s``/``v_s`` (L, B, T, H), zero where nothing is written yet."""
     dec = params.decoder
     L, D, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
     B = audio_features.shape[0]
@@ -458,34 +495,56 @@ def init_cache(
     scale = (D // H) ** -0.25
     dev = audio_features.device
     xa = audio_features.to(dtype)
-    kdt = torch.float32  # static K slabs: compute-dtype values in fp32
+    kdt = torch.int8 if quantize else torch.float32  # fp32 holds compute-dtype values
+    vdt = torch.int8 if quantize else dtype
+    sdt = torch.int8 if quantize_self else dtype
     ta, dh = xa.shape[1], D // H
     cache: Cache = {
-        "k": torch.zeros((L, B, T, D), dtype=dtype, device=dev),
-        "v": torch.zeros((L, B, T, D), dtype=dtype, device=dev),
+        "k": torch.zeros((L, B, T, D), dtype=sdt, device=dev),
+        "v": torch.zeros((L, B, T, D), dtype=sdt, device=dev),
         "xa_k": torch.empty((L, B, H, ta, dh), dtype=kdt, device=dev),
-        "xa_v": torch.empty((L, B, H, ta, dh), dtype=dtype, device=dev),
+        "xa_v": torch.empty((L, B, H, ta, dh), dtype=vdt, device=dev),
     }
+    if quantize_self:
+        cache["k_s"] = torch.zeros((L, B, T, H), dtype=torch.float32, device=dev)
+        cache["v_s"] = torch.zeros((L, B, T, H), dtype=torch.float32, device=dev)
+
+    def store(name: str, idx, k: torch.Tensor, v: torch.Tensor) -> None:
+        if quantize:
+            cache[name + "_k"][idx], cache[name + "_k_s"][idx] = quantize_int8(k, dim=(-2, -1))
+            cache[name + "_v"][idx], cache[name + "_v_s"][idx] = quantize_int8(v, dim=(-2, -1))
+        else:
+            cache[name + "_k"][idx], cache[name + "_v"][idx] = k, v
+
+    if quantize:
+        for key in ("xa_k_s", "xa_v_s"):
+            cache[key] = torch.empty((L, B, H, 1, 1), dtype=torch.float32, device=dev)
     for l, blk in enumerate(dec.blocks):
-        cache["xa_k"][l] = head_split_kv(linear(blk.cross_attn.key, xa), H) * scale
-        cache["xa_v"][l] = head_split_kv(linear(blk.cross_attn.value, xa), H)
+        store("xa", l, head_split_kv(linear(blk.cross_attn.key, xa), H) * scale,
+              head_split_kv(linear(blk.cross_attn.value, xa), H))
     if xt is not None and dec.blocks[0].gated:
         xt_p = _prepare_xt(params, dims, xt, dtype)  # (n_langs, B, S, D)
         n_langs, _, s, _ = xt_p.shape
         cache["xt_k"] = torch.empty((L, n_langs, B, H, s, dh), dtype=kdt, device=dev)
-        cache["xt_v"] = torch.empty((L, n_langs, B, H, s, dh), dtype=dtype, device=dev)
+        cache["xt_v"] = torch.empty((L, n_langs, B, H, s, dh), dtype=vdt, device=dev)
+        if quantize:
+            for key in ("xt_k_s", "xt_v_s"):
+                cache[key] = torch.empty((L, n_langs, B, H, 1, 1), dtype=torch.float32,
+                                         device=dev)
         for l, blk in enumerate(dec.blocks):
             for i in range(n_langs):
                 attn = blk.gated_x_attn_layers[i].attn
-                cache["xt_k"][l, i] = head_split_kv(linear(attn.key, xt_p[i]), H) * scale
-                cache["xt_v"][l, i] = head_split_kv(linear(attn.value, xt_p[i]), H)
+                store("xt", (l, i), head_split_kv(linear(attn.key, xt_p[i]), H) * scale,
+                      head_split_kv(linear(attn.value, xt_p[i]), H))
         cache["xt"] = xt_p
     return cache
 
 
 def lm_head_weight(params: Whisper, dtype: torch.dtype) -> torch.Tensor:
     """The tied embedding as the logits matmul's float32 operand: its
-    ``dtype`` values, upcast (cached by :func:`prepare_decode_params`)."""
+    ``dtype`` values, upcast (cached by :func:`prepare_decode_params`; in
+    the int8 modes the int8 values, which the logits scale by
+    ``lm_head_s``)."""
     dec = params.decoder
     cached = getattr(dec, "lm_head_f32", None)
     if cached is not None:
@@ -512,7 +571,13 @@ def decoder_apply(
     precomputed audio / conditioning K/V. A one-token chunk (an
     incremental step) goes through the decode-attention kernel
     (:func:`..ops.decode_attn.fused_step`); a longer one (the prefill)
-    through the plain cache write and attention.
+    through the plain cache write and attention. An int8kv cache (``k_s``
+    in it) takes the plain write and attention in every step, as in the
+    JAX package: the rows are written quantized with per-(token, head)
+    scales. With ``ops.decode_mlp.ENABLED`` the MLP goes through
+    :func:`..ops.decode_mlp.fused_mlp`. Int8 static slabs carry their
+    scales in the cache; an int8 lm head (``lm_head_s``) scales the fp32
+    logits per vocabulary row.
 
     A gated model run without streams applies only the gated blocks'
     shared FFN (zero attention delta).
@@ -571,17 +636,23 @@ def decoder_apply(
     else:
         scale = (dims.n_text_state // n_head) ** -0.25
         have_xt_kv = use_gated and "xt_k" in cache
-        incremental = T == 1
-        if incremental and isinstance(offset, int):
+        quantized_self = "k_s" in cache
+        use_kernel = T == 1 and not quantized_self
+        if use_kernel and isinstance(offset, int):
             # one device offset shared by every layer's kernel call
             offset = torch.full((1,), offset, dtype=torch.int32, device=dev)
-        mask = None if incremental else cached_causal_mask(
+        mask = None if use_kernel else cached_causal_mask(
             T, cache["k"].shape[-2], offset, device=dev
         )
+
+        def layer(key: str, l: int) -> Optional[torch.Tensor]:
+            return cache[key][l] if key in cache else None
+
         for l, blk in enumerate(dec.blocks):
             if have_xt_kv:
                 x = _gated_x_attn_cached(
-                    blk, x, cache["xt_k"][l], cache["xt_v"][l], n_head, sequential=sequential_xt
+                    blk, x, cache["xt_k"][l], cache["xt_v"][l], n_head, sequential=sequential_xt,
+                    k_scale=layer("xt_k_s", l), v_scale=layer("xt_v_s", l),
                 )
             elif use_gated:
                 x = _gated_ff_only(blk, x)
@@ -591,8 +662,16 @@ def decoder_apply(
             k_raw = linear(ap.key, x_ln)
             v_raw = linear(ap.value, x_ln)
             k_l, v_l = cache["k"][l], cache["v"][l]
-            if incremental:
+            if use_kernel:
                 attn = decode_attn.fused_step(q, k_raw, v_raw, k_l, v_l, offset, n_head)[0]
+            elif quantized_self:
+                k_q, k_s = quantize_tokenwise_kv(k_raw * scale, n_head)
+                v_q, v_s = quantize_tokenwise_kv(v_raw, n_head)
+                k_s_l, v_s_l = cache["k_s"][l], cache["v_s"][l]
+                for slab, new in ((k_l, k_q), (v_l, v_q), (k_s_l, k_s), (v_s_l, v_s)):
+                    update_cache(slab, new, offset)
+                attn = cached_qkv_attention(q, k_l, v_l, n_head, mask=mask,
+                                            k_scale=k_s_l, v_scale=v_s_l)
             else:
                 update_cache(k_l, k_raw * scale, offset)
                 update_cache(v_l, v_raw, offset)
@@ -601,11 +680,18 @@ def decoder_apply(
             x = x + attention_block(
                 blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head,
                 k_override=cache["xa_k"][l], v_override=cache["xa_v"][l],
+                k_scale=layer("xa_k_s", l), v_scale=layer("xa_v_s", l),
             )
-            x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+            if decode_mlp.ENABLED:
+                x = x + decode_mlp.fused_mlp(blk.mlp, layer_norm(blk.mlp_ln, x))
+            else:
+                x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
 
     x = layer_norm(dec.ln, x)
     logits = torch.matmul(x.float(), lm_head_weight(params, x.dtype).t())
+    lm_head_s = getattr(dec, "lm_head_s", None)
+    if lm_head_s is not None:  # int8 lm head: per-vocabulary-row scales
+        logits = logits * lm_head_s
     return logits, cache
 
 
@@ -653,18 +739,64 @@ def init_params(
     return model.eval()
 
 
+def _quantize_linear(p: nn.Linear) -> None:
+    w_q, w_s = quantize_linear_params(p.weight)
+    p.weight = None  # the int8 copy replaces it
+    p.register_buffer("w_q", w_q, persistent=False)
+    p.register_buffer("w_s", w_s, persistent=False)
+
+
 @torch.no_grad()
-def prepare_decode_params(params: Whisper, dtype: torch.dtype) -> Whisper:
+def quantize_decode_params(params: Whisper) -> Whisper:
+    """Quantize, IN PLACE, the decoder weights the incremental decode loop
+    re-reads every token (``DecodingOptions(quantize=...)``); takes the
+    decode copy that :func:`prepare_decode_params` makes and returns it.
+
+    Each linear gets an int8 ``w_q`` with per-output-channel float32
+    ``w_s`` in place of its weight: self-attention q, k, v and out (the
+    JAX package quantizes its fused QKV weight; per-output-channel scales
+    make the int8 values and scales the same), cross-attention q and out,
+    the MLP, the gated per-stream q and out and the gated FFN. The lm head
+    gets an int8 copy of the embedding with per-vocabulary-row scales
+    (``lm_head_q``/``lm_head_s``) for the logits only: the embedding
+    gather keeps the table. Read once at prefill and kept as they are:
+    cross-attention and gated k/v, ``xt_projection``, the positions and
+    every LayerNorm."""
+    dec = params.decoder
+    for blk in dec.blocks:
+        for lin in (blk.attn.query, blk.attn.key, blk.attn.value, blk.attn.out,
+                    blk.cross_attn.query, blk.cross_attn.out, blk.mlp[0], blk.mlp[2]):
+            _quantize_linear(lin)
+        if blk.gated:
+            for sub in blk.gated_x_attn_layers:
+                _quantize_linear(sub.attn.query)
+                _quantize_linear(sub.attn.out)
+            _quantize_linear(blk.ff[0])
+            _quantize_linear(blk.ff[2])
+    lm_q, lm_s = quantize_int8(dec.token_embedding.weight, dim=-1)
+    dec.register_buffer("lm_head_q", lm_q, persistent=False)
+    dec.register_buffer("lm_head_s", lm_s.squeeze(-1), persistent=False)
+    dec.lm_head_f32 = lm_q.float()  # the logits matmul's operand: the int8 values
+    return params
+
+
+@torch.no_grad()
+def prepare_decode_params(params: Whisper, dtype: torch.dtype, quantize: bool = False) -> Whisper:
     """The decode loop's one-time parameter copy: every float32 decoder
     weight cast to the compute ``dtype`` (as the JAX package casts its fp32
-    masters), and the tied embedding's float32 operand for the logits
-    matmul cached. The encoder is shared, not copied: the decode loop does
-    not run it. With ``dtype`` float32 the model itself is returned."""
-    if dtype == torch.float32:
+    masters), then, with ``quantize``, :func:`quantize_decode_params`; the
+    tied embedding's float32 operand for the logits matmul cached. The
+    encoder is shared, not copied: the decode loop does not run it. With
+    ``dtype`` float32 and no quantization the model itself is returned.
+    One place for this keeps speculative decoding token-identical to
+    greedy."""
+    if dtype == torch.float32 and not quantize:
         return params
     out = copy.deepcopy(params, memo={id(params.encoder): params.encoder})
     for p in out.decoder.parameters():
         if p.dtype == torch.float32:
             p.data = p.data.to(dtype)
+    if quantize:
+        return quantize_decode_params(out)
     out.decoder.lm_head_f32 = out.decoder.token_embedding.weight.detach().float()
     return out

@@ -43,14 +43,22 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
-def _attend(qh, kh, vh, mask=None, out_dtype=None, return_qk=False):
+def _attend(qh, kh, vh, mask=None, out_dtype=None, return_qk=False,
+            logit_scale=None, weight_scale=None):
     """fp32 logits and softmax over head-split operands; weights in the
     compute dtype for the V product. With ``return_qk`` also the fp32
-    logits (mask added)."""
+    logits (mask added). ``logit_scale`` multiplies the fp32 logits before
+    the mask (unwritten int8kv positions carry scale 0 and mask -inf:
+    ``0 * -inf`` would be NaN the other way round); ``weight_scale``
+    multiplies the weights in their dtype before the V product."""
     logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    if logit_scale is not None:
+        logits = logits * logit_scale
     if mask is not None:
         logits = logits + mask
     weights = torch.softmax(logits, dim=-1).to(out_dtype or qh.dtype)
+    if weight_scale is not None:
+        weights = weights * weight_scale.to(weights.dtype)
     out = torch.matmul(weights, vh.to(weights.dtype))
     return (out, logits) if return_qk else out
 
@@ -126,24 +134,40 @@ def update_cache(
 def cached_qkv_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
     mask: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Self-attention of ``q`` (B, Tq, D) against the unsplit (B, T_max, D)
-    cache slabs, K pre-scaled at write time."""
+    cache slabs, K pre-scaled at write time.
+
+    With ``k_scale``/``v_scale`` (the int8kv self cache's per-(token, head)
+    (B, T_max, H) scales) the slabs are int8: K's scale multiplies the fp32
+    logits before the mask, V's the weights in q's dtype."""
     d_head = q.shape[-1] // n_head
     qh = split_heads(q, n_head) * (d_head ** -0.25)
     kh = split_heads(k, n_head)
     vh = split_heads(v.to(q.dtype), n_head)
-    return merge_heads(_attend(qh, kh, vh, mask))
+    if k_scale is not None:  # (B, T, H) -> (B, H, 1, T)
+        k_scale = k_scale.transpose(1, 2)[:, :, None, :]
+    if v_scale is not None:
+        v_scale = v_scale.transpose(1, 2)[:, :, None, :]
+    return merge_heads(_attend(qh, kh, vh, mask, logit_scale=k_scale, weight_scale=v_scale))
 
 
 def xa_qkv_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Cross-attention of ``q`` (B, Tq, D) against a head-split, pre-scaled
-    (B, H, Tk, Dh) K/V slab. No mask."""
+    (B, H, Tk, Dh) K/V slab. No mask.
+
+    With ``k_scale``/``v_scale`` (per-head (B, H, 1, 1) scales) the slabs
+    are int8: K's scale multiplies q in q's dtype before QK^T, V's the
+    weights in their dtype."""
     d_head = q.shape[-1] // n_head
     qh = split_heads(q, n_head) * (d_head ** -0.25)
-    return merge_heads(_attend(qh, k, v, out_dtype=q.dtype))
+    if k_scale is not None:
+        qh = qh * k_scale.to(qh.dtype)
+    return merge_heads(_attend(qh, k, v, out_dtype=q.dtype, weight_scale=v_scale))
 
 
 def head_split_kv(x: torch.Tensor, n_head: int) -> torch.Tensor:

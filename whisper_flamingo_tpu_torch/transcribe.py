@@ -10,10 +10,13 @@ computed once on the model's device and each window is decoded there by
 :func:`.decoding.decode`; word timing runs :mod:`.timing` on the same
 window.
 
-Left out, each a TPU workaround or a later slice: the power-of-two prompt
-bucketing (the port passes the whole prompt, as the reference does), the
-compile budget, and speculative decoding (``draft_model`` raises; see
-ROADMAP.md).
+With ``draft_model`` the greedy rung of the temperature ladder (t = 0, no
+beam) decodes speculatively (:func:`.speculative.decode_speculative`,
+token-identical); the sampling rungs decode plainly.
+
+Left out, each a TPU workaround: the power-of-two prompt bucketing (the
+port passes the whole prompt, as the reference does) and the compile
+budget.
 """
 
 from __future__ import annotations
@@ -58,15 +61,12 @@ def transcribe(
     draft_len: int = 4,
     **decode_options,
 ):
-    """Transcribe audio of any length on the model's device.
+    """Transcribe audio of any length on the model's device; ``draft_model``
+    (with ``draft_len`` tokens per round) speculates the greedy rung.
 
     Returns ``dict(text=..., segments=[...], language=...)`` with the JAX
     package's segment fields (and ``words`` per segment with
     ``word_timestamps``)."""
-    if draft_model is not None:
-        raise NotImplementedError(
-            "draft_model: speculative decoding is not ported yet (ROADMAP.md, slice 5)"
-        )
     # pad 30 seconds of silence to the input audio, for slicing
     mel = log_mel_spectrogram(audio, model.dims.n_mels, padding=N_SAMPLES, device=model.device)
     content_frames = mel.shape[-1] - N_FRAMES
@@ -109,7 +109,14 @@ def transcribe(
                 kwargs.pop("best_of", None)
 
             options = DecodingOptions(**kwargs, temperature=t)
-            decode_result = decode(model, segment, options)
+            if draft_model is not None and t == 0 and kwargs.get("beam_size") is None:
+                # speculation's argmax guarantee needs t = 0
+                from .speculative import decode_speculative
+
+                decode_result = decode_speculative(model, draft_model, segment, options,
+                                                   draft_len)
+            else:
+                decode_result = decode(model, segment, options)
 
             needs_fallback = False
             if (
