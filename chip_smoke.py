@@ -95,6 +95,21 @@ each printing one JSON line:
 14. speculative: ``small`` verifier, ``tiny`` draft (seeds 0 and 1),
     greedy b8, draft length 4: RTF, the share of drafts accepted, verifier
     passes per token; gate: fp32 tokens equal plain greedy.
+15. flash64_fwd_probe: the probe entry point
+    (``tools.flash64_fwd_probe.run``) on bf16 (8, 12, 1500, 64) with the
+    probe's scales: shipped, augv and csbound timed in turns. Each variant
+    kernel (``csrc/flash64_fwd_probe.cu``) against its plain version and
+    against the shipped kernel (1e-2 of the output scale); two launches
+    give the same bits. Times beside the bound, the plain versions' and
+    SDPA's.
+16. mma_pair: the pair kernel (``csrc/mma_pair.cu``) against
+    ``pair_chain_plain`` at iters 1, 2, 3 for d 64, 128, 256 (one bf16 ulp
+    of the output scale; bit-equal reruns); the first iteration after which
+    the probe's operands are all zero; then the probe entry point
+    (``tools.packed_probe2.run``) at its four (d, n) points at 512 rows and
+    at 33,792 (two blocks per SM): ms, raw and useful TF/s, the two ratios;
+    at d 64 and 512 rows the bound, the plain version and the chain of
+    ``torch.addmm`` calls beside it.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
@@ -976,6 +991,119 @@ def phase_speculative(torch, wt, mel, options):
     return out
 
 
+def phase_flash64_variants(torch, flash64):
+    """The forward variants through the probe's entry point, then each
+    kernel against its plain version and the shipped kernel."""
+    import torch.nn.functional as F
+
+    from whisper_flamingo_tpu_torch.ops import flash64_variants as fv
+    from whisper_flamingo_tpu_torch.tools import flash64_fwd_probe as probe
+
+    t = 1500
+    q, k, v = probe.make_inputs(BATCH, N_HEAD, t, "cuda")
+    kernels = {"augv": (fv.flash64_fwd_augv, fv.flash64_fwd_augv_plain),
+               "csbound+augv": (fv.flash64_fwd_csbound, fv.flash64_fwd_csbound_plain)}
+    for fn, _ in kernels.values():
+        fn.launches = 0
+    flash64.flash64_forward.launches = 0
+    rows = {r["name"]: r for r in probe.run(q, k, v, iters=20)}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    launches["shipped"] = flash64.flash64_forward.launches
+    bh = BATCH * N_HEAD
+    bound_ms, bound_by = bound(4.0 * bh * t * t * 64, 4.0 * bh * t * 64 * q.element_size(),
+                               "bfloat16")
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
+    out = {"phase": "flash64_fwd_probe", "shape": [BATCH, N_HEAD, t, 64],
+           "shipped_ms": rows["shipped"]["ms"], "shipped_ms_turns": rows["shipped"]["ms_turns"],
+           "library_ms": sdpa_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "launches": launches, "variants": {}}
+    for name, (fn, plain) in kernels.items():
+        got = rows[name]["out"]
+        again = fn(q, k, v)
+        ref = plain(q, k, v)
+        scale = max(ref.float().abs().max().item(), 1.0)
+        row = {"max_abs_err": max_err(got, ref), "scale": scale, "rel_tol": 1e-2,
+               "max_abs_delta_vs_shipped": rows[name]["max_abs_delta_vs_shipped"],
+               "same_bits_twice": torch.equal(got, again), "ms": rows[name]["ms"],
+               "ms_turns": rows[name]["ms_turns"],
+               "plain_ms": time_ms(lambda: plain(q, k, v), 3, 1), "library_ms": sdpa_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches[name]}
+        out["variants"][name] = row
+        if not (torch.isfinite(got).all().item() and row["same_bits_twice"]
+                and row["max_abs_err"] <= 1e-2 * scale
+                and row["max_abs_delta_vs_shipped"] <= 1e-2 * scale and launches[name] > 0):
+            raise AssertionError(f"flash64_fwd_probe {name}: {row}")
+    emit(out)
+    return out["variants"]
+
+
+def _addmm_chain(torch, w, v, u, iters):
+    """The pair as cuBLAS computes it: per product one ``torch.addmm`` with
+    alpha 0.01 and beta 0 (the scale in the fp32 epilogue, then bf16)."""
+    zo = torch.zeros(w.shape[0], v.shape[1], dtype=w.dtype, device=w.device)
+    zw = torch.zeros_like(w)
+    for _ in range(iters):
+        o = torch.addmm(zo, w, v, beta=0, alpha=0.01)
+        w = torch.addmm(zw, o, u, beta=0, alpha=0.01)
+    return w
+
+
+def phase_mma_pair(torch):
+    """The pair kernel against its plain version, the operands' decay, and
+    the probe's rates at 512 rows and at a row count that fills the card."""
+    from whisper_flamingo_tpu_torch.ops import mma_pair
+    from whisper_flamingo_tpu_torch.tools import packed_probe2 as probe
+
+    rel = 2.0 ** -7  # one bf16 ulp of the output scale: fp32 sums in another order
+    checks = []
+    for d in mma_pair.HEAD_WIDTHS:
+        w, v, u = probe.make_operands(512, probe.TK, d, "cuda", seed=d)
+        for iters in (1, 2, 3):
+            got = mma_pair.pair_chain(w, v, u, iters)
+            again = mma_pair.pair_chain(w, v, u, iters)
+            ref = mma_pair.pair_chain_plain(w, v, u, iters)
+            scale = ref.float().abs().max().item()
+            row = {"d": d, "iters": iters, "max_abs_err": max_err(got, ref), "scale": scale,
+                   "rel_tol": rel, "same_bits_twice": torch.equal(got, again)}
+            checks.append(row)
+            if not (scale > 0 and row["same_bits_twice"] and row["max_abs_err"] <= rel * scale):
+                raise AssertionError(f"mma_pair: {row}")
+    w, v, u = probe.make_operands(512, probe.TK, 64, "cuda", seed=0)
+    zero = {"kernel": mma_pair.first_zero_iteration(w, v, u, 64, chain=mma_pair.pair_chain),
+            "plain": mma_pair.first_zero_iteration(w, v, u, 64)}
+
+    fill = 2 * 132 * mma_pair.ROW_TILE
+    mma_pair.pair_chain.launches = 0
+    rates = {}
+    for rows in (512, fill):
+        points, ratios = probe.run(rows, "cuda")
+        for p in points:
+            p["raw_share_of_989"] = p["raw_tflops"] / (PEAK_FLOPS["bfloat16"] / 1e12)
+        rates[rows] = {"points": points, **ratios}
+    torch.cuda.synchronize()
+    launches = mma_pair.pair_chain.launches
+
+    p64 = rates[512]["points"][0]
+    iters, n = p64["iters"], p64["n"]
+    w, v, u = probe.make_operands(512, n, 64, "cuda", seed=0)
+    entry = {"max_abs_err": max(c["max_abs_err"] for c in checks if c["d"] == 64),
+             "ms": p64["ms"], "rows": 512, "iters": iters,
+             "plain_ms": time_ms(lambda: mma_pair.pair_chain_plain(w, v, u, iters), 1, 1),
+             "library_ms": time_ms(lambda: _addmm_chain(torch, w, v, u, iters), 1, 1),
+             "library_call": "2 x iters torch.addmm (alpha 0.01, beta 0): no single call",
+             "launches": launches}
+    entry["bound_ms"], entry["bound_by"] = bound(
+        mma_pair.pair_flops(512, n, 64, iters), 2.0 * (2 * 512 * n + 2 * n * 64), "bfloat16")
+    emit({"phase": "mma_pair", "checks": checks, "first_all_zero_iteration": zero,
+          "note": "past the first all-zero iteration every operand is zero: the rates are "
+                  "readings on zero operands", "rates": {str(r): x for r, x in rates.items()},
+          "d64_rows512": entry})
+    if zero["kernel"] is None or zero["plain"] is None:
+        raise AssertionError(f"mma_pair: the operands did not decay to zero: {zero}")
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -1097,6 +1225,11 @@ def main() -> int:
     phase_speculative(torch, wt, mel, options)
     mark("14")
 
+    # -- 15., 16. the probes: the flash64 forward variants, the matmul pair ----
+    fv = phase_flash64_variants(torch, flash64)
+    mp = phase_mma_pair(torch)
+    mark("15-16")
+
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -1127,6 +1260,13 @@ def main() -> int:
         entry("decode_mlp", "whisper_flamingo_tpu_torch/csrc/decode_mlp.cu",
               "whisper_flamingo_tpu/ops/decode_mlp.py:70",
               serving["greedy_int8_mlp"]["launches"]["decode_mlp"], dm),
+        entry("flash64_fwd_augv", "whisper_flamingo_tpu_torch/csrc/flash64_fwd_probe.cu",
+              "tools/flash64_fwd_probe.py:102", fv["augv"]["launches"], fv["augv"]),
+        entry("flash64_fwd_csbound", "whisper_flamingo_tpu_torch/csrc/flash64_fwd_probe.cu",
+              "tools/flash64_fwd_probe.py:102", fv["csbound+augv"]["launches"],
+              fv["csbound+augv"]),
+        entry("mma_pair", "whisper_flamingo_tpu_torch/csrc/mma_pair.cu",
+              "tools/packed_probe2.py:53", mp["launches"], mp),
     ]
     emit({"phase": "summary", "total_s": time.perf_counter() - t_start, "phase_s": seconds})
     print(smi_line(), flush=True)

@@ -3,8 +3,13 @@
 Tolerance 2e-5 on the log-mel: both sides are fp32; the JAX side is a
 matmul DFT at HIGHEST precision, the port an FFT, so the power spectra
 differ by ~1e-7 relative, and log10 / 4 shrinks that further.
+
+``load_audio``'s ffmpeg fallback runs against a fake ``ffmpeg`` script put
+on PATH (it decodes a raw test container), with JAX's ``load_audio`` on the
+same file as the reference: the samples must be equal.
 """
 
+import os
 import wave
 
 import numpy as np
@@ -51,3 +56,80 @@ def test_pad_or_trim_and_load_audio(tmp_path):
         w.setframerate(8000)
         w.writeframes(tone.tobytes())
     np.testing.assert_allclose(taudio.load_audio(path), jaudio.load_audio(path), atol=1e-7)
+
+
+FAKE_FFMPEG = """#!{python}
+# Decodes the test's raw container: float32 samples after a 4-byte magic;
+# answers the ffmpeg command line load_audio builds with s16le mono PCM.
+import sys
+import numpy as np
+args = sys.argv[1:]
+assert args[args.index("-f") + 1] == "s16le" and args[args.index("-ac") + 1] == "1"
+assert args[-1] == "-" and args[args.index("-ar") + 1] == "16000"
+raw = open(args[args.index("-i") + 1], "rb").read()
+if raw[:4] != b"FAKE":
+    sys.stderr.write("Invalid data found when processing input")
+    sys.exit(1)
+x = np.frombuffer(raw[4:], np.float32)
+sys.stdout.buffer.write((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+"""
+
+
+@pytest.fixture
+def fake_ffmpeg(tmp_path, monkeypatch):
+    """An ``ffmpeg`` on PATH that decodes a raw test container (the image
+    has no ffmpeg)."""
+    import sys
+
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    exe = bindir / "ffmpeg"
+    exe.write_text(FAKE_FFMPEG.format(python=sys.executable))
+    exe.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ.get('PATH', '')}")
+    return exe
+
+
+def _fake_container(path, seed):
+    x = (np.random.default_rng(seed).standard_normal(3200) * 0.2).astype(np.float32)
+    with open(path, "wb") as f:
+        f.write(b"FAKE" + x.tobytes())
+
+
+@pytest.mark.parametrize("name", ["clip.mp3", "clip.flac", "float.wav"])
+def test_load_audio_falls_back_to_ffmpeg(tmp_path, fake_ffmpeg, name):
+    """A non-WAV path, and a ``.wav`` the native reader refuses (here not
+    RIFF at all), decode through ffmpeg, equal to JAX's ``load_audio``."""
+    path = str(tmp_path / name)
+    _fake_container(path, seed=len(name))
+    got = taudio.load_audio(path)
+    assert got.dtype == np.float32 and got.shape == (3200,)
+    np.testing.assert_array_equal(got, jaudio.load_audio(path))
+
+
+def test_load_audio_ffmpeg_errors(tmp_path, fake_ffmpeg, monkeypatch):
+    """An ffmpeg failure raises ``RuntimeError`` with its message; so does a
+    non-WAV file with no ffmpeg on PATH, as in JAX."""
+    bad = str(tmp_path / "bad.mp3")
+    with open(bad, "wb") as f:
+        f.write(b"not audio")
+    with pytest.raises(RuntimeError, match="Invalid data"):
+        taudio.load_audio(bad)
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    for mod in (taudio, jaudio):
+        with pytest.raises(RuntimeError, match="ffmpeg is unavailable"):
+            mod.load_audio(bad)
+
+
+def test_load_audio_24bit_wav_goes_to_ffmpeg(tmp_path, monkeypatch):
+    """A 24-bit PCM WAV is refused by the native reader (``wave.Error``, as
+    in JAX) and so needs ffmpeg: without it, ``RuntimeError``."""
+    path = str(tmp_path / "deep.wav")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(3)
+        w.setframerate(16000)
+        w.writeframes(b"\x00\x01\x02" * 100)
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(RuntimeError, match="ffmpeg is unavailable"):
+        taudio.load_audio(path)

@@ -290,3 +290,79 @@ def test_debug_int8_decode_kernel_tokens_equal_plain(gen, monkeypatch):
         m.setattr(decode_mlp, "_launch", decode_mlp.fused_mlp_plain)
         ref = wt.DecodingTask(model, opts).run(mel)
     assert [g.tokens for g in got] == [r.tokens for r in ref]
+
+
+# the probe kernels: bf16 outputs within one ulp of their scale (2^-7 of the
+# largest magnitude; fp32 sums in another order can flip a bf16 rounding)
+PROBE_REL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("variant", ["augv", "csbound"])
+@pytest.mark.parametrize("t", [1, 63, 300, 1500])
+def test_flash64_variant_kernels_match_plain(gen, variant, t):
+    """The forward variants at the probe's scales (q, k 0.3 N(0, 1)); the
+    online softmax of augv rounds its probabilities against a running max,
+    so it is held at the shipped kernel's 1e-2 of the output scale; two
+    launches give the same bits."""
+    from whisper_flamingo_tpu_torch.ops import flash64_variants as fv
+
+    q, k = ((torch.randn(2, 3, t, 64, generator=gen, device="cuda") * 0.3).bfloat16()
+            for _ in range(2))
+    v = torch.randn(2, 3, t, 64, generator=gen, device="cuda").bfloat16()
+    fn = fv.flash64_fwd_augv if variant == "augv" else fv.flash64_fwd_csbound
+    plain = fv.flash64_fwd_augv_plain if variant == "augv" else fv.flash64_fwd_csbound_plain
+    before = fn.launches
+    out, again = fn(q, k, v), fn(q, k, v)
+    assert fn.launches == before + 2
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    ref = plain(q, k, v)
+    scale = max(ref.float().abs().max().item(), 1.0)
+    assert torch.isfinite(out).all() and (out.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+
+
+def test_flash64_variant_kernels_refuse_what_they_cannot_take(gen):
+    from whisper_flamingo_tpu_torch.ops import flash64_variants as fv
+
+    q = torch.randn(1, 2, 70, 64, generator=gen, device="cuda")
+    with pytest.raises(TypeError):  # fp32
+        fv.flash64_fwd_augv(q, q, q)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError):  # not contiguous
+        fv.flash64_fwd_csbound(qb.transpose(1, 2), qb.transpose(1, 2), qb.transpose(1, 2))
+    with pytest.raises(ValueError):  # d_head 32
+        fv.flash64_fwd_augv(qb[..., :32].contiguous(), qb[..., :32].contiguous(),
+                            qb[..., :32].contiguous())
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_mma_pair_kernel_matches_plain(gen, d, iters):
+    """The pair loop at the probe's scales and n 1536, 256 rows (two
+    blocks); reruns give the same bits."""
+    from whisper_flamingo_tpu_torch.ops import mma_pair
+
+    w = torch.randn(256, 1536, generator=gen, device="cuda").bfloat16()
+    v = (torch.randn(1536, d, generator=gen, device="cuda") * 0.1).bfloat16()
+    u = (torch.randn(d, 1536, generator=gen, device="cuda") * 0.1).bfloat16()
+    before = mma_pair.pair_chain.launches
+    out, again = mma_pair.pair_chain(w, v, u, iters), mma_pair.pair_chain(w, v, u, iters)
+    assert mma_pair.pair_chain.launches == before + 2 and torch.equal(out, again)
+    ref = mma_pair.pair_chain_plain(w, v, u, iters)
+    scale = ref.float().abs().max().item()
+    assert scale > 0 and (out.float() - ref.float()).abs().max().item() <= PROBE_REL * scale
+
+
+def test_mma_pair_kernel_refuses_what_it_cannot_take(gen):
+    from whisper_flamingo_tpu_torch.ops import mma_pair
+
+    w = torch.randn(128, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(128, 64, generator=gen, device="cuda").bfloat16()
+    u = torch.randn(64, 128, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError):  # rows not a multiple of 128
+        mma_pair.pair_chain(w[:64].contiguous(), v, u, 1)
+    with pytest.raises(ValueError):  # d 96
+        mma_pair.pair_chain(w, v.repeat(1, 2)[:, :96].contiguous(), u.repeat(2, 1)[:96].contiguous(), 1)
+    with pytest.raises(TypeError):  # fp32
+        mma_pair.pair_chain(w.float(), v.float(), u.float(), 1)
+    with pytest.raises(ValueError):  # iters 0
+        mma_pair.pair_chain(w, v, u, 0)

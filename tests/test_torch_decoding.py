@@ -51,6 +51,9 @@ CASES = [
      dict(language="en", beam_size=3, patience=2.0, length_penalty=0.5)),
     ("greedy_prompt_prefix", "plain",
      dict(language="en", prompt="hello there", prefix="so we", without_timestamps=True)),
+    ("greedy_prompt_bucketed", "plain",
+     dict(language="en", prompt=list(range(100, 111)), bucket_prompt_lengths=True,
+          without_timestamps=True)),
     ("greedy_xt", "gated", dict(language="en", without_timestamps=True)),
     ("beam3_xt", "gated", dict(language="en", beam_size=3, without_timestamps=True)),
 ]
@@ -122,6 +125,23 @@ def test_sampling_is_seeded_and_single_segment_decode(models, mel):
     one = decode(tmodel, mel[0], DecodingOptions(language="en", fp16=False, sample_len=6))
     batch = decode(tmodel, mel, DecodingOptions(language="en", fp16=False, sample_len=6))
     assert one.tokens == batch[0].tokens
+
+
+@pytest.mark.parametrize("n_prompt", [1, 5, 8, 11, 300])
+def test_bucketed_prompt_tokens_match_jax(models, n_prompt):
+    """``bucket_prompt_lengths`` keeps the newest power-of-two count of the
+    prompt (after the n_ctx // 2 - 1 cut), as JAX does; off, the whole
+    prompt."""
+    jmodel, tmodel = models["plain"]
+    prompt = [int(t) for t in np.random.default_rng(n_prompt).integers(100, 1000, n_prompt)]
+    for bucket in (True, False):
+        opts = dict(language="en", prompt=prompt, bucket_prompt_lengths=bucket)
+        got = DecodingTask(tmodel, DecodingOptions(**opts)).initial_tokens
+        assert got == JTask(jmodel, JOptions(**opts)).initial_tokens
+        kept = len(got) - 1 - len(DecodingTask(tmodel, DecodingOptions(language="en"))
+                                  .initial_tokens)
+        cut = min(n_prompt, DIMS.n_text_ctx // 2 - 1)
+        assert kept == (1 << (cut.bit_length() - 1) if bucket else cut)
 
 
 def test_int8_modes_not_ported(models):

@@ -29,6 +29,9 @@ import whisper_flamingo_tpu_torch.training.trainer
 import whisper_flamingo_tpu_torch.recipes.common, whisper_flamingo_tpu_torch.recipes.whisper_ft
 import whisper_flamingo_tpu_torch.serving, whisper_flamingo_tpu_torch.speculative
 import whisper_flamingo_tpu_torch.ops.quant, whisper_flamingo_tpu_torch.ops.decode_mlp
+import whisper_flamingo_tpu_torch.ops.flash64_variants, whisper_flamingo_tpu_torch.ops.mma_pair
+import whisper_flamingo_tpu_torch.tools.flash64_fwd_probe
+import whisper_flamingo_tpu_torch.tools.packed_probe2
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")]
@@ -63,7 +66,9 @@ def test_sources_name_no_jax_module():
                 "config", "profiling", "ops/spec_augment", "data/collator", "data/dataset",
                 "data/noise", "data/samplers", "data/translations", "training/optim",
                 "training/steps", "training/trainer", "recipes/common", "recipes/whisper_ft",
-                "serving", "speculative", "ops/quant", "ops/decode_mlp"):
+                "serving", "speculative", "ops/quant", "ops/decode_mlp",
+                "ops/flash64_variants", "ops/mma_pair", "tools/flash64_fwd_probe",
+                "tools/packed_probe2"):
         assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
     for path in _sources():
         with open(path) as fh:
@@ -122,6 +127,14 @@ def test_kernel_wrappers_raise_on_a_device_without_a_kernel():
                                   torch.nn.Linear(256, 64))
     with pytest.raises(RuntimeError, match="no kernel"):  # the dispatch rule picks the kernel
         decode_mlp.fused_mlp(mlp, torch.empty(2, 1, 64, device="meta"))
+    from whisper_flamingo_tpu_torch.ops import flash64_variants, mma_pair
+
+    for fn in (flash64_variants.flash64_fwd_augv, flash64_variants.flash64_fwd_csbound):
+        with pytest.raises(RuntimeError, match="no kernel"):
+            fn(q, q, q)
+    w = torch.empty(128, 64, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        mma_pair.pair_chain(w, w[:64], w[:64], 1)
 
 
 def test_serving_entry_points_need_a_device(monkeypatch):

@@ -4,12 +4,10 @@ both packages.
 
 ``transcribe``: identical text, segment tokens, seek, start and end, and
 words (word, start and end identical, probabilities within 1e-5: fp32
-softmaxes summed in another order). The JAX ``transcribe`` truncates the
-chained prompt to a power of two (``bucket_prompt_lengths=True``, an XLA
-compile-count workaround the port leaves out); the cases that chain
-prompts patch the JAX module's ``DecodingOptions`` so that both packages
-decode the whole prompt, as the reference does. Nothing of the JAX package
-is edited.
+softmaxes summed in another order). Both packages' ``transcribe`` keep the
+newest power-of-two count of the chained prompt's tokens
+(``bucket_prompt_lengths=True``), so the cases that chain prompts compare
+them unpatched.
 
 Writers: the same bytes as the JAX package's for every format and option.
 """
@@ -64,26 +62,17 @@ def wav(tmp_path_factory):
     return str(path)
 
 
-def _unbucketed(monkeypatch):
-    options = jtranscribe_mod.DecodingOptions
-    monkeypatch.setattr(
-        jtranscribe_mod, "DecodingOptions",
-        lambda **kw: options(**{**kw, "bucket_prompt_lengths": False}),
-    )
-
-
 CASES = [
-    ("chained", dict(word_timestamps=False), True),
-    ("chained_words", dict(word_timestamps=True), True),
-    ("unconditioned_words", dict(word_timestamps=True, condition_on_previous_text=False), False),
+    ("chained", dict(word_timestamps=False)),
+    ("chained_words", dict(word_timestamps=True)),
+    ("unconditioned_words", dict(word_timestamps=True, condition_on_previous_text=False)),
 ]
 
 
-@pytest.mark.parametrize("name,opts,patch", CASES, ids=[c[0] for c in CASES])
-def test_transcribe_matches_jax(models, wav, monkeypatch, name, opts, patch):
+@pytest.mark.parametrize("name,opts", CASES, ids=[c[0] for c in CASES])
+def test_transcribe_matches_jax(models, wav, name, opts):
+    """Both packages bucket the chained prompt to a power of two."""
     jmodel, tmodel = models
-    if patch:
-        _unbucketed(monkeypatch)
     kw = dict(language="en", sample_len=12, fp16=False, temperature=0.0, **opts)
     ref = jtranscribe_mod.transcribe(jmodel, wav, **kw)
     got = wt.transcribe(tmodel, wav, **kw)

@@ -7,13 +7,18 @@ power -> the generated Slaney mel filterbank -> log10 -> clamp at
 (row max - 8) -> (x + 4) / 4, with the fork's passthrough when the input
 already is a spectrogram (any dim of 80).
 
-Left out: the pad-to-8 batch guard (a TPU miscompile workaround), the
-matmul-DFT formulation (``torch.stft`` is the FFT), and the ffmpeg
-fallback (``load_audio`` reads PCM WAV files only).
+``load_audio`` reads PCM WAV natively and decodes every other file (and
+a ``.wav`` the native reader refuses) through the ffmpeg CLI, as JAX does.
+
+Left out: the pad-to-8 batch guard (a TPU miscompile workaround) and the
+matmul-DFT formulation (``torch.stft`` is the FFT).
 """
 
 from __future__ import annotations
 
+import shutil
+import struct
+import subprocess
 import wave
 from functools import lru_cache
 from typing import Optional, Union
@@ -36,7 +41,29 @@ TOKENS_PER_SECOND = SAMPLE_RATE // N_SAMPLES_PER_TOKEN  # 20 ms per audio token
 
 
 def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
-    """Read a PCM WAV file as a mono float32 waveform at ``sr``."""
+    """Read an audio file as a mono float32 waveform at ``sr``.
+
+    A ``.wav`` path is read natively first; any other file, or a ``.wav``
+    the native reader refuses (not PCM, an unsupported sample width), is
+    decoded by the ``ffmpeg`` CLI to 16-bit mono at ``sr``. Without ffmpeg
+    on PATH that raises ``RuntimeError``."""
+    if file.lower().endswith(".wav"):
+        try:
+            return _load_wav(file, sr)
+        except (wave.Error, struct.error):
+            pass  # not a plain PCM WAV: ffmpeg below
+    if shutil.which("ffmpeg") is None:
+        raise RuntimeError(f"cannot decode {file!r}: not a PCM WAV and ffmpeg is unavailable")
+    cmd = ["ffmpeg", "-nostdin", "-threads", "0", "-i", file,
+           "-f", "s16le", "-ac", "1", "-acodec", "pcm_s16le", "-ar", str(sr), "-"]
+    try:
+        out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"Failed to load audio: {e.stderr.decode()}") from e
+    return np.frombuffer(out, np.int16).flatten().astype(np.float32) / 32768.0
+
+
+def _load_wav(file: str, sr: int) -> np.ndarray:
     with wave.open(file, "rb") as w:
         n_channels = w.getnchannels()
         width = w.getsampwidth()
@@ -49,7 +76,7 @@ def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
     elif width == 1:
         data = (np.frombuffer(frames, np.uint8).astype(np.float32) - 128.0) / 128.0
     else:
-        raise ValueError(f"{file}: unsupported sample width {width}")
+        raise wave.Error(f"unsupported sample width: {width}")
     if n_channels > 1:
         data = data.reshape(-1, n_channels).mean(axis=1)
     if rate != sr:

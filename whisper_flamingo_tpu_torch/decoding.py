@@ -22,8 +22,11 @@ scales, the beam-mode variant (greedy warns, as in JAX). The logit filters
 take one length for every row, or a (N,) tensor of per-row lengths
 (speculative decoding and the continuous batcher), as JAX's vector form.
 
-Left out: prompt-length bucketing (an XLA compile-count workaround), the
-alignment programs, and the one-hot beam reorder. A bf16 run
+``bucket_prompt_lengths`` keeps the newest power-of-two count of prompt
+tokens, as JAX does (``transcribe`` turns it on): it changes which tokens
+the decoder sees, so it is output, not only a compile-count bound.
+
+Left out: the alignment programs, and the one-hot beam reorder. A bf16 run
 (``fp16=True``) decodes with a bf16 copy of the weights made once per
 task; the encoder reads the model's own weights, cast per layer, as the
 JAX encoder program does.
@@ -77,6 +80,11 @@ class DecodingOptions:
 
     fp16: bool = True  # selects bfloat16 compute
     seed: int = 0
+
+    # keep the newest floor-to-power-of-two count of prompt tokens (JAX's
+    # compile-count bound; it changes the prompt, so transcribe() sets it
+    # as JAX's does)
+    bucket_prompt_lengths: bool = False
 
     # "int8": int8 decode weights and static K/V slabs; "int8kv": also the
     # self cache (the beam-mode variant)
@@ -326,6 +334,9 @@ class DecodingTask:
                 self.tokenizer.encode(" " + prompt.strip()) if isinstance(prompt, str) else prompt
             )
             prompt_tokens = list(prompt_tokens)[-(self.n_ctx // 2 - 1):]
+            if self.options.bucket_prompt_lengths and prompt_tokens:
+                keep = 1 << (len(prompt_tokens).bit_length() - 1)
+                prompt_tokens = prompt_tokens[-keep:]
             tokens = [self.tokenizer.sot_prev] + prompt_tokens + tokens
         return tuple(tokens)
 

@@ -25,7 +25,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(CSRC)), "build", "wf_torch_kernels"
 )
-KERNELS = ("flash64_fwd", "flash64_bwd", "decode_attn", "decode_mlp", "dtw")
+KERNELS = ("flash64_fwd", "flash64_bwd", "decode_attn", "decode_mlp", "dtw",
+           "flash64_fwd_probe", "mma_pair")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -14,9 +14,9 @@ With ``draft_model`` the greedy rung of the temperature ladder (t = 0, no
 beam) decodes speculatively (:func:`.speculative.decode_speculative`,
 token-identical); the sampling rungs decode plainly.
 
-Left out, each a TPU workaround: the power-of-two prompt bucketing (the
-port passes the whole prompt, as the reference does) and the compile
-budget.
+Each window's options set ``bucket_prompt_lengths`` as JAX's do: the
+chained prompt keeps its newest power-of-two count of tokens. Left out:
+the compile budget (a TPU workaround).
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ def transcribe(
             else:
                 kwargs.pop("best_of", None)
 
-            options = DecodingOptions(**kwargs, temperature=t)
+            options = DecodingOptions(**kwargs, temperature=t, bucket_prompt_lengths=True)
             if draft_model is not None and t == 0 and kwargs.get("beam_size") is None:
                 # speculation's argmax guarantee needs t = 0
                 from .speculative import decode_speculative
