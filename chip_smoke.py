@@ -11,10 +11,13 @@ each printing one JSON line:
 
 1. device: the card's name and power limit (nvidia-smi); the CUDA kernels
    are built from ``whisper_flamingo_tpu_torch/csrc`` (one nvcc per source,
-   all at once).
+   all at once), with ptxas's registers and spills of the flash64 kernels.
 2. flash64: the encoder-attention kernel against its plain version on the
-   card at (B*H, T, 64) = (96, 1500, 64) in bf16 and fp32 and a ragged
-   T = 300; its time beside the bound, the plain version's and SDPA's.
+   card at (B*H, T, 64) = (96, 1500, 64) in bf16 and fp32, a ragged
+   T = 300, and in bf16 every edge of the ``wgmma`` kernel's 128-row tiles
+   (T = 1, 63, 64, 65, 127, 128, 129); at T = 1500 its time beside the
+   bound (with TF/s and the bound's share of the time), the plain
+   version's and SDPA's, and the host time per call.
 3. decode_attn: the decode-attention kernel against its plain version at
    T_max 448, D 768, 12 heads: 8 rows with a scalar and with per-row
    offsets, 120 rows (beam 15 x batch 8) with a scalar offset; output and
@@ -48,11 +51,12 @@ each printing one JSON line:
 
 7. flash64_bwd: the forward's lse and the backward kernels
    (``csrc/flash64_bwd.cu``: the D row pass, dK/dV, dQ) against their plain
-   versions at (8, 12, T, 64) for T in 1500, 400, 100 and 1, bf16 and fp32;
-   two launches give the same bits. At T = 1500: the forward with lse and
-   the backward beside their bounds, the plain versions' times, and SDPA's
-   forward and backward through autograd (a yardstick the port never
-   calls).
+   versions at (8, 12, T, 64) for T in 1500, 400, 100 and 1 and the tile
+   edges 63, 64, 65, 127, 128, 129, bf16 and fp32; two launches give the
+   same bits. At T = 1500: the forward with lse and the backward beside
+   their bounds (with TF/s and the bound's share), the plain versions'
+   times, and SDPA's forward and backward through autograd (a yardstick
+   the port never calls).
 8. train_small_b8: the JAX package's train bench protocol
    (``bench.py:105-138``): ``small``, batch 8 of (80, 3000) mel, 128
    tokens, AdamW lr 1e-5 over 1000 steps, bf16 compute over fp32 masters,
@@ -134,6 +138,7 @@ BATCH, SAMPLE_LEN, BEAM = 8, 64, 15
 T_MAX, D_MODEL, N_HEAD = 448, 768, 12
 LONGFORM_SECONDS, MAX_WINDOWS = 90, 40
 CB_REQUESTS = 32
+EDGE_T = (63, 64, 65, 127, 128, 129)  # with T = 1: the edges of 64-row boxes, 128-row blocks
 
 
 def emit(obj) -> None:
@@ -174,12 +179,50 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def rate(row, flops, ms_key="ms", prefix=""):
+    """TF/s on the bound's operations and the bound's share of the time."""
+    row[prefix + "tflops"] = flops / row[ms_key] / 1e9
+    row[prefix + "bound_share"] = row[prefix + "bound_ms"] / row[ms_key]
+
+
+def host_ms(torch, fn, calls: int = 20) -> float:
+    """Host time per call: the wrapper and the launch, enqueued back to back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return out
+
+
+def ptxas_report(log: str):
+    """{mangled kernel name: {registers, spill_stores, spill_loads}} from
+    nvcc -Xptxas -v."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)  # the mangled name
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_flash64(torch, flash64, gen):
     import torch.nn.functional as F
 
     rows, results = [], {}
     cases = [("bfloat16", 1500, 1e-2), ("float32", 1500, 1e-5),
-             ("bfloat16", 300, 1e-2), ("float32", 300, 1e-5)]
+             ("bfloat16", 300, 1e-2), ("float32", 300, 1e-5), ("bfloat16", 1, 1e-2)]
+    cases += [("bfloat16", t, 1e-2) for t in EDGE_T]
     for dtype_name, t, tol in cases:
         dtype = getattr(torch, dtype_name)
         q, k, v = (torch.randn(BATCH, N_HEAD, t, 64, generator=gen, device="cuda") for _ in range(3))
@@ -199,9 +242,12 @@ def phase_flash64(torch, flash64, gen):
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 10
             )
+            flops = 4.0 * bh * t * t * 64
             row["bound_ms"], row["bound_by"] = bound(
-                4.0 * bh * t * t * 64, 4.0 * bh * t * 64 * q.element_size(), dtype_name
+                flops, 4.0 * bh * t * 64 * q.element_size(), dtype_name
             )
+            rate(row, flops)
+            row["host_ms"] = host_ms(torch, lambda: flash64.flash64_attention(q, k, v))
             results[dtype_name] = row
         rows.append(row)
     emit({"phase": "flash64", "cases": rows})
@@ -425,7 +471,7 @@ def phase_flash64_bwd(torch, flash64, gen):
     fwd_tol = {"bfloat16": 2e-2, "float32": 1e-5}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
-        for t in (1500, 400, 100, 1):
+        for t in (1500, 400, 100, 1) + EDGE_T:
             q, k = ((torch.randn(BATCH, N_HEAD, t, 64, generator=gen, device="cuda")
                      * 64 ** -0.25).to(dtype) for _ in range(2))
             v, do = (torch.randn(BATCH, N_HEAD, t, 64, generator=gen, device="cuda").to(dtype)
@@ -455,6 +501,7 @@ def phase_flash64_bwd(torch, flash64, gen):
                     lambda: flash64.flash64_forward_plain(q, k, v, with_lse=True), 3, 1)
                 row["fwd_lse_bound_ms"], row["fwd_lse_bound_by"] = bound(
                     4.0 * bh * t * t * 64, bh * t * (4 * 64 * item + 4), dtype_name)
+                rate(row, 4.0 * bh * t * t * 64, "fwd_lse_ms", "fwd_lse_")
                 row["bwd_ms"] = time_ms(lambda: flash64.flash64_backward(q, k, v, o, lse, do), 10)
                 row["bwd_plain_ms"] = time_ms(
                     lambda: flash64.flash64_backward_plain(q, k, v, o, lse, do), 3, 1)
@@ -462,6 +509,7 @@ def phase_flash64_bwd(torch, flash64, gen):
                 # dQ, dK, dV written once
                 row["bwd_bound_ms"], row["bwd_bound_by"] = bound(
                     5 * 2.0 * bh * t * t * 64, bh * t * (8 * 64 * item + 4), dtype_name)
+                rate(row, 5 * 2.0 * bh * t * t * 64, "bwd_ms", "bwd_")
                 qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
                 row["sdpa_fwd_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), 10)
@@ -1128,7 +1176,9 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
-          "libraries": [os.path.relpath(p, ROOT) for p in libs]})
+          "libraries": [os.path.relpath(p, ROOT) for p in libs],
+          "ptxas": {n: ptxas_report(cuda_build.build_log(n))
+                    for n in ("flash64_fwd", "flash64_bwd")}})
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # -- 2, 3. kernels against their plain versions ---------------------------

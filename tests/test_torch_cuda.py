@@ -126,6 +126,72 @@ def test_flash64_autograd_through_head_split_views(gen, dtype):
         assert err <= BWD_REL[dtype] * max(r.float().abs().max().item(), 1.0)
 
 
+# The wgmma forms of csrc/hopper.cuh, one product each (csrc/wgmma_check.cu):
+# bf16 products are exact in fp32, so only the order of the fp32 sum over
+# 16 * ksteps terms differs from torch.matmul's.
+WGMMA_FORMS = {"ss": 0, "rs": 1, "rs_t": 2, "ss_t": 3}
+
+
+@pytest.mark.parametrize("ksteps", [1, 4])
+@pytest.mark.parametrize("form,n", [("ss", 64), ("ss", 128), ("rs", 64), ("rs_t", 64),
+                                    ("ss_t", 64)])
+def test_wgmma_form_matches_matmul(gen, form, n, ksteps):
+    """D (64 x n) = A (64 x 16 ksteps) B through TMA tiles in the 128-byte
+    swizzle: K-major B stored [n][k], MN-major B (``_t``) stored [k][n]."""
+    import ctypes
+
+    from whisper_flamingo_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("wgmma_check").wf_wgmma_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    a = torch.randn(64, 64, generator=gen, device="cuda").bfloat16()
+    mn_major = form.endswith("_t")
+    b = torch.randn(64 if mn_major else n, 64, generator=gen, device="cuda").bfloat16()
+    d = torch.full((64, n), float("nan"), device="cuda")
+    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, WGMMA_FORMS[form], ksteps,
+             cuda_build.stream_ptr(a))
+    cuda_build.check(err, "wgmma_check")
+    torch.cuda.synchronize()
+    kk = 16 * ksteps
+    bkn = b[:kk].float() if mn_major else b[:, :kk].float().t()
+    ref = a[:, :kk].float() @ bkn
+    assert (d - ref).abs().max().item() <= 1e-5 * max(ref.abs().max().item(), 1.0)
+
+
+# every edge of the bf16 kernels' tiles: 64-row boxes and 128-row blocks
+EDGE_T = [1, 63, 64, 65, 127, 128, 129, 300, 1500]
+
+
+@pytest.mark.parametrize("t", EDGE_T)
+def test_flash64_bf16_tile_edges_through_head_split_views(gen, t):
+    """The wgmma kernels at every tile edge, in the encoder's layout (q/k/v
+    and dO head-split views of (B, T, H*64) tensors): the forward (with and
+    without the lse, the same bits), its lse and the backward against the
+    plain versions; two launches of each give the same bits."""
+    b, h = 2, 3
+    x = [torch.randn(b, t, h * 64, generator=gen, device="cuda") for _ in range(4)]
+    x[0], x[1] = x[0] * 64 ** -0.25, x[1] * 64 ** -0.25
+    q, k, v, do = (a.bfloat16().view(b, t, h, 64).transpose(1, 2) for a in x)
+    o, lse = flash64.flash64_forward(q, k, v, with_lse=True)
+    o2, lse2 = flash64.flash64_forward(q, k, v, with_lse=True)
+    o_inf = flash64.flash64_forward(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o, o_inf)
+    o_ref, lse_ref = flash64.flash64_forward_plain(q, k, v, with_lse=True)
+    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    got = flash64.flash64_backward(q, k, v, o, lse, do)
+    again = flash64.flash64_backward(q, k, v, o, lse, do)
+    ref = flash64.flash64_backward_plain(q, k, v, o, lse, do)
+    for name, a, r, a2 in zip(("dq", "dk", "dv"), got, ref, again):
+        assert torch.equal(a, a2), name
+        assert torch.isfinite(a).all(), name
+        scale = r.float().abs().max().item()
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= BWD_REL[torch.bfloat16] * max(scale, 1.0), (name, err, scale)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,per_row", [(3, False), (3, True), (40, False)])
 def test_decode_attn_kernel_matches_plain(gen, dtype, rows, per_row):

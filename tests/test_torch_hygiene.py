@@ -32,6 +32,7 @@ import whisper_flamingo_tpu_torch.ops.quant, whisper_flamingo_tpu_torch.ops.deco
 import whisper_flamingo_tpu_torch.ops.flash64_variants, whisper_flamingo_tpu_torch.ops.mma_pair
 import whisper_flamingo_tpu_torch.tools.flash64_fwd_probe
 import whisper_flamingo_tpu_torch.tools.packed_probe2
+import whisper_flamingo_tpu_torch.tools.flash64_ab
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")]
@@ -68,7 +69,7 @@ def test_sources_name_no_jax_module():
                 "training/steps", "training/trainer", "recipes/common", "recipes/whisper_ft",
                 "serving", "speculative", "ops/quant", "ops/decode_mlp",
                 "ops/flash64_variants", "ops/mma_pair", "tools/flash64_fwd_probe",
-                "tools/packed_probe2"):
+                "tools/packed_probe2", "tools/flash64_ab"):
         assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
     for path in _sources():
         with open(path) as fh:

@@ -17,10 +17,10 @@
 // splits into three launches, none with atomics (every output element is
 // summed by one thread in a fixed order, so two runs give the same bits):
 //   1. a row pass computes D (B*H*T dot products of 64);
-//   2. the dK/dV kernel: one block per (b*h, 64-key tile); it loops over
-//      the q tiles, recomputes S^T and dP^T for its keys and keeps dK and
-//      dV in fp32 registers;
-//   3. the dQ kernel: one block per (b*h, 64-query tile); it loops over the
+//   2. the dK/dV kernel: one block per (b*h, key tile); it loops over the
+//      q tiles, recomputes S^T and dP^T for its keys and keeps dK and dV
+//      in fp32 registers;
+//   3. the dQ kernel: one block per (b*h, query tile); it loops over the
 //      key tiles, recomputes S and dP and keeps dQ in fp32 registers.
 // S and dP are computed twice (once in each kernel): 7 products of
 // 2*T*T*64 in all, against the 5 the backward needs.
@@ -29,17 +29,23 @@
 //
 // What bounds it: 5 products of 2*T*T*64 operations per (batch, head)
 // against ~10*T*64 elements of traffic, so it is bound by arithmetic.
-//   - bf16: every product runs on the tensor cores with mma.sync.m16n8k16
-//     (bf16 in, fp32 accumulate). Each warp owns 16 rows (keys in the dK/dV
-//     kernel, queries in the dQ kernel) and keeps its operands' A fragments
-//     and its accumulators in registers; the other operands are 64-row
-//     shared-memory tiles (rows padded to 72 elements: conflict-free),
-//     copied in with cp.async two stages deep, so the next tile arrives
-//     while this one is multiplied. Where a product contracts over the
-//     tile's rows (dV = P^T dO, dK = dS^T Q, dQ = dS K), ldmatrix.trans
-//     reads the row-major tile as the B operand: no transposed copy.
-//     S^T/P^T and dS^T turn from accumulator into A fragments in
-//     registers, as the forward does with P. No wgmma or TMA yet.
+//   - bf16 (csrc/hopper.cuh): each kernel's block owns 128 rows (keys in
+//     dK/dV, queries in dQ) with three warpgroups. The producer warpgroup
+//     (24 registers, setmaxnreg) has one thread issue TMA loads: the
+//     block's own 128 rows once, then the other side in 64-row tiles into
+//     a 4-stage shared-memory ring under mbarriers (dK/dV: Q and dO, with
+//     the lse and D values of those queries copied in by the producer
+//     warp's lanes; dQ: K and V). Each consumer
+//     warpgroup (240 registers) owns 64 rows and runs every product on
+//     wgmma m64n64k16: in dK/dV, S^T = K Q^T and dP^T = V dO^T from shared
+//     memory (all K-major), then P^T = exp(S^T - lse) and
+//     dS^T = P^T (dP^T - D) in registers, rounded to bf16 as A fragments,
+//     and dV += P^T dO, dK += dS^T Q with A from registers and dO, Q read
+//     from their TMA tiles as MN-major B; in dQ, S = Q K^T and dP = dO V^T
+//     from shared memory, dS in registers, dQ += dS K with K as an
+//     MN-major B. The two consumer warpgroups of a block share every
+//     streamed tile, and one's exponentials run while the other's products
+//     do.
 //   - fp32: the contract forbids TF32, so the products are fp32 FMA against
 //     the card's 67 TFLOP/s rate: two threads share a row (32 dims each,
 //     the dot products joined by one shuffle), the other operand's rows
@@ -50,12 +56,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int D = 64;     // head width
 constexpr int TILE = 64;  // rows per block and per shared-memory tile
 constexpr int HALF = 32;  // dims per thread in the fp32 kernels
-constexpr int PAD = 72;   // padded row length of the bf16 shared tiles
 constexpr int THREADS = 128;
 
 using bf16 = __nv_bfloat16;
@@ -255,275 +262,303 @@ __global__ void __launch_bounds__(THREADS) dq_fma_kernel(
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on wgmma, fed by TMA
 // ---------------------------------------------------------------------------
 
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col). Fragment
-// layout (g = lane / 4, q = lane % 4): a0 (g, 2q..2q+1), a1 (g+8, 2q..),
-// a2 (g, 2q+8..), a3 (g+8, 2q+8..); b0 (k 2q..2q+1, n g), b1 (k 2q+8.., n g);
-// d0,d1 (g, 2q..2q+1), d2,d3 (g+8, 2q..2q+1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
+constexpr int ROWS = 128;         // rows a block owns: two consumer warpgroups of 64
+constexpr int BT = 64;            // rows per streamed tile (and per TMA box)
+constexpr int STAGES = 4;         // ring depth
+constexpr int WG_THREADS = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// The dK/dV kernel's shared memory: the block's keys, and a ring of query
+// tiles with their lse and D values.
+struct __align__(1024) DkdvSmem {
+  bf16 k[ROWS * D];  // [key][dim], 128-byte swizzle; warpgroup w's at w * 64 * D
+  bf16 v[ROWS * D];
+  bf16 q[STAGES][BT * D];  // [query][dim]
+  bf16 g[STAGES][BT * D];  // dO
+  float lse[STAGES][BT];
+  float dd[STAGES][BT];
+  uint64_t own_full;
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+};
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// The dQ kernel's: the block's queries and their dO, and a ring of key tiles.
+struct __align__(1024) DqSmem {
+  bf16 q[ROWS * D];
+  bf16 g[ROWS * D];
+  bf16 k[STAGES][BT * D];
+  bf16 v[STAGES][BT * D];
+  uint64_t own_full;
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+};
 
-// B fragments of two adjacent 8-column slices of a row-major [k][n] shared
-// tile, where the product contracts over the tile's rows: one
-// ldmatrix.x4.trans. Lane l gives the address of row (l & 15) of the
-// 16-row chunk at column (l >> 4) * 8 of the 16-column pair; r0, r1 are
-// (b0, b1) of the first slice, r2, r3 of the second.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared without registers; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most one group (the newest prefetch) is still in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// The A fragments of 16 rows (r0 = first row of this thread, r0 + 8 the
-// second) x 64 dims of a row-major tensor; zeros for rows past T.
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[4][4], const bf16* base, int64_t st,
-                                            int r0, bool live0, bool live1, int tq) {
-  const bf16* p0 = base + (int64_t)r0 * st;
-  const bf16* p1 = p0 + 8 * st;
+// Barrier set-up shared by both kernels (thread 0, then the whole block).
+// A full slot takes `full_count` arrivals besides its TMA bytes.
+__device__ __forceinline__ void init_ring(uint64_t* own_full, uint64_t* full, uint64_t* empty,
+                                          int full_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * tq;
-    a[kk][0] = live0 ? ld_pair(p0 + c) : 0u;
-    a[kk][1] = live1 ? ld_pair(p1 + c) : 0u;
-    a[kk][2] = live0 ? ld_pair(p0 + c + 8) : 0u;
-    a[kk][3] = live1 ? ld_pair(p1 + c + 8) : 0u;
-  }
-}
-
-// Start copying rows r_begin.. (n of them real) of a row-major tensor into
-// a 64-row shared tile; rows past n are zero-filled. A warp copies four
-// whole 128-byte rows.
-__device__ __forceinline__ void issue_tile(bf16 (*dst)[PAD], const bf16* base, int64_t st,
-                                           int r_begin, int n) {
-#pragma unroll
-  for (int i = threadIdx.x; i < TILE * (D / 8); i += THREADS) {
-    const int r = i / 8, c8 = (i % 8) * 8;
-    const bool ok = r < n;
-    cp_async16(&dst[r][c8], base + (int64_t)(r_begin + (ok ? r : 0)) * st + c8, ok);
-  }
-}
-
-// acc[8][4] (16 rows x 64 dims, fp32) rounded to bf16 into rows r0, r0 + 8.
-__device__ __forceinline__ void store_rows(bf16* base, int64_t st, const float (&acc)[8][4],
-                                           int r0, bool live0, bool live1, int tq) {
-  bf16* o0 = base + (int64_t)r0 * st + 2 * tq;
-  bf16* o1 = o0 + 8 * st;
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
-    if (live0) *reinterpret_cast<uint32_t*>(o0 + dn * 8) = pack_bf16(acc[dn][0], acc[dn][1]);
-    if (live1) *reinterpret_cast<uint32_t*>(o1 + dn * 8) = pack_bf16(acc[dn][2], acc[dn][3]);
-  }
-}
-
-// acc[8][4] (16 rows x 64 dims) += A (16 rows x 64 contraction, as 4 A
-// fragments) x B, B the 64 x 64 row-major shared tile [contraction][dim].
-__device__ __forceinline__ void mma_rows_by_tile(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                                 const bf16 (*tile)[PAD], int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, &tile[kk * 16 + (lane & 15)][dp * 16 + (lane >> 4) * 8]);
-      mma_bf16(acc[2 * dp], a[kk], b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a[kk], b[2], b[3]);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], full_count);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// The block's own 128 rows of two tensors: a 64-row box of each per
+// half, where that half holds a row below t (a box wholly past t is not
+// issued: its warpgroup's rows are never written).
+__device__ __forceinline__ void load_own(bf16* a, const CUtensorMap* amap, bf16* b,
+                                         const CUtensorMap* bmap, uint64_t* bar, int r0, int t,
+                                         int h, int bi) {
+  const int halves = r0 + BT < t ? 2 : 1;
+  mbar_arrive_expect_tx(bar, halves * 2 * BT * D * 2);
+  for (int i = 0; i < halves; ++i) {
+    tma_load_4d(a + i * BT * D, amap, bar, 0, r0 + i * BT, h, bi);
+    tma_load_4d(b + i * BT * D, bmap, bar, 0, r0 + i * BT, h, bi);
   }
 }
 
-// One block per (b*h, 64 keys); warp w owns keys k0 + 16w.. . For each
-// 64-query tile (the next one copying in meanwhile): S^T = K Q^T and
-// dP^T = V dO^T (keys x queries), then P^T = exp(S^T - lse),
-// dS^T = P^T (dP^T - D), and dV += P^T dO, dK += dS^T Q, with P^T and dS^T
-// rounded to bf16 as A fragments.
-__global__ void __launch_bounds__(THREADS) dkdv_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ drow,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int n_head, int t, int64_t sb, int64_t sh,
-    int64_t st, int64_t gsb, int64_t gsh, int64_t gst, int64_t xsb, int64_t xsh, int64_t xst) {
-  __shared__ __align__(16) bf16 qs[2][TILE][PAD];  // Q tiles, [query][dim], two stages
-  __shared__ __align__(16) bf16 gs[2][TILE][PAD];  // dO tiles, [query][dim]
-  __shared__ float ls[2][TILE], dd[2][TILE];
+// acc (64 rows x 64 dims of this warpgroup, accumulator layout) rounded to
+// bf16 into rows row0, row0 + 8 of this thread; rows at or past t skipped.
+__device__ __forceinline__ void store_rows(bf16* base, int64_t st, const float (&acc)[32],
+                                           int row0, int t, int tq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= t) continue;
+    bf16* out = base + (int64_t)row * st + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + 8 * n) =
+          pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+  }
+}
 
+// grid (ceil(T / 128), B * H). q/k/v/dO through the tensor maps (rows of
+// (b, h) at {0, row, h, b}, 64-row boxes); lse and D, contiguous
+// (B*H, T), copied into the ring by the producer warp's lanes (a TMA box
+// of them would start at any 4-byte offset, and TMA reads 16-byte aligned
+// boxes); dK, dV addressed as base + b*xsb + h*xsh + row*xst + c.
+__global__ void __launch_bounds__(WG_THREADS, 1) dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const float* __restrict__ lse, const float* __restrict__ drow, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int n_head, int t, int64_t xsb, int64_t xsh, int64_t xst) {
+  extern __shared__ uint8_t smem_raw[];
+  DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(align1024(smem_raw));
   const int b = blockIdx.y / n_head, h = blockIdx.y % n_head;
-  const bf16* qb = q + b * sb + h * sh;
-  const bf16* gb = g + b * gsb + h * gsh;
-  const float* lrow = lse + (int64_t)blockIdx.y * t;
-  const float* drw = drow + (int64_t)blockIdx.y * t;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gi = lane / 4, tq = lane % 4;
-  const int r0 = blockIdx.x * TILE + warp * 16 + gi;  // this thread's keys: r0, r0 + 8
-  const bool live0 = r0 < t, live1 = r0 + 8 < t;
+  const int k0 = blockIdx.x * ROWS;
+  const int n_tiles = (t + BT - 1) / BT;
+  const int wg = threadIdx.x / 128;
+  init_ring(&sm.own_full, sm.full, sm.empty, 1 + 32);  // + the producer warp's lanes
 
-  // stage the first tile, then take K and V rows as A fragments
-  auto stage = [&](int s, int q0) {
-    const int nq = min(TILE, t - q0);
-    issue_tile(qs[s], qb, st, q0, nq);
-    issue_tile(gs[s], gb, gst, q0, nq);
-    if (threadIdx.x < TILE) {
-      const bool ok = threadIdx.x < nq;
-      ls[s][threadIdx.x] = ok ? lrow[q0 + threadIdx.x] : 0.f;
-      dd[s][threadIdx.x] = ok ? drw[q0 + threadIdx.x] : 0.f;
-    }
-  };
-  stage(0, 0);
-  cp_async_commit();
-  uint32_t ka[4][4], va[4][4];
-  load_a_rows(ka, k + b * sb + h * sh, st, r0, live0, live1, tq);
-  load_a_rows(va, v + b * sb + h * sh, st, r0, live0, live1, tq);
-  float dka[8][4], dva[8][4];
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) load_own(sm.k, &kmap, sm.v, &vmap, &sm.own_full, k0, t, h, b);
+      const float* lrow = lse + (int64_t)blockIdx.y * t;
+      const float* drw = drow + (int64_t)blockIdx.y * t;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int cs = j % STAGES;
+        mbar_wait(&sm.empty[cs], ((j / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[cs], 2 * BT * D * 2);
+          tma_load_4d(sm.q[cs], &qmap, &sm.full[cs], 0, j * BT, h, b);
+          tma_load_4d(sm.g[cs], &gmap, &sm.full[cs], 0, j * BT, h, b);
+        }
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dn][e] = dva[dn][e] = 0.f;
-
-  for (int it = 0, q0 = 0; q0 < t; ++it, q0 += TILE) {
-    const int cur = it & 1, nq = min(TILE, t - q0);
-    if (q0 + TILE < t) stage(cur ^ 1, q0 + TILE);  // stage cur ^ 1 was last read before
-    cp_async_commit();                             // the previous iteration's barrier
-    cp_async_wait_prev();
-    __syncthreads();
-
-    uint32_t pa[4][4], dsa[4][4];  // P^T, dS^T in bf16 as A fragments, per 16 queries
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* qr = &qs[cur][nt * 8 + gi][2 * tq];
-      const bf16* gr = &gs[cur][nt * 8 + gi][2 * tq];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        mma_bf16(s, ka[kk], ld_pair(qr + kk * 16), ld_pair(qr + kk * 16 + 8));
-        mma_bf16(dp, va[kk], ld_pair(gr + kk * 16), ld_pair(gr + kk * 16 + 8));
+        for (int i = lane; i < BT; i += 32) {  // columns past t: zeros, masked anyway
+          const int row = j * BT + i;
+          sm.lse[cs][i] = row < t ? lrow[row] : 0.f;
+          sm.dd[cs][i] = row < t ? drw[row] : 0.f;
+        }
+        mbar_arrive(&sm.full[cs]);  // releases this lane's stores to the consumers
       }
-      const int c = nt * 8 + 2 * tq;  // this thread's query columns: c, c + 1
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c + (e & 1);
-        p[e] = col < nq ? expf(s[e] - ls[cur][col]) : 0.f;  // ragged edge: masked
-        ds[e] = p[e] * (dp[e] - dd[cur][col]);
-      }
-      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      dsa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    mma_rows_by_tile(dva, pa, gs[cur], lane);
-    mma_rows_by_tile(dka, dsa, qs[cur], lane);
-    __syncthreads();  // stage cur is refilled next iteration
+  } else {  // consumers: warpgroup wg owns keys k0 + 64 wg ..
+    setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int tq = lane % 4;
+    const uint64_t kd = desc_k_major(sm.k + wg * 64 * D);
+    const uint64_t vd = desc_k_major(sm.v + wg * 64 * D);
+    float dk_acc[32], dv_acc[32], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = st[i] = dpt[i] = 0.f;
+    uint32_t pa[4][4], dsa[4][4];  // P^T, dS^T as A fragments, per 16 queries
+
+    mbar_wait(&sm.own_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int cs = j % STAGES;
+      mbar_wait(&sm.full[cs], (j / STAGES) & 1);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+      const uint64_t qd = desc_k_major(sm.q[cs]), gd = desc_k_major(sm.g[cs]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64<0>(st, kd + 2 * kk, qd + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64<0>(dpt, vd + 2 * kk, gd + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      const int live = t - j * BT;  // query columns at or past it are masked
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * n + 2 * tq + c;
+          const float lse2 = sm.lse[cs][col] * kLog2e, dval = sm.dd[cs][col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * n + 2 * r + c;
+            p[2 * r + c] = col < live ? ex2(fmaf(st[i], kLog2e, -lse2)) : 0.f;
+            ds[2 * r + c] = p[2 * r + c] * (dpt[i] - dval);
+          }
+        }
+        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        dsa[n / 2][(n % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        dsa[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      fence_regs(dsa);
+      wgmma_fence();
+      const uint64_t gm = desc_mn_major(sm.g[cs]), qm = desc_mn_major(sm.q[cs]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dv_acc, pa[kk], gm + 128 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dk_acc, dsa[kk], qm + 128 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      fence_regs(dsa);
+      if (lane == 0) mbar_arrive(&sm.empty[cs]);
+    }
+
+    const int row0 = k0 + wg * 64 + warp * 16 + lane / 4;
+    store_rows(dk + b * xsb + h * xsh, xst, dk_acc, row0, t, tq);
+    store_rows(dv + b * xsb + h * xsh, xst, dv_acc, row0, t, tq);
   }
-
-  store_rows(dk + b * xsb + h * xsh, xst, dka, r0, live0, live1, tq);
-  store_rows(dv + b * xsb + h * xsh, xst, dva, r0, live0, live1, tq);
 }
 
-// One block per (b*h, 64 queries); warp w owns queries q0 + 16w.. . For
-// each 64-key tile (the next one copying in meanwhile): S = Q K^T and
-// dP = dO V^T, P = exp(S - lse), dS = P (dP - D) rounded to bf16,
-// dQ += dS K.
-__global__ void __launch_bounds__(THREADS) dq_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ drow,
-    bf16* __restrict__ dq, int n_head, int t, int64_t sb, int64_t sh, int64_t st, int64_t gsb,
-    int64_t gsh, int64_t gst, int64_t xsb, int64_t xsh, int64_t xst) {
-  __shared__ __align__(16) bf16 ks[2][TILE][PAD];  // K tiles, [key][dim], two stages
-  __shared__ __align__(16) bf16 vs[2][TILE][PAD];  // V tiles, [key][dim]
-
+// grid (ceil(T / 128), B * H); as the dK/dV kernel, with lse and D read
+// per row from the flat arrays and dQ addressed as base + b*xsb + h*xsh +
+// row*xst + c.
+__global__ void __launch_bounds__(WG_THREADS, 1) dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const float* __restrict__ lse, const float* __restrict__ drow, bf16* __restrict__ dq,
+    int n_head, int t, int64_t xsb, int64_t xsh, int64_t xst) {
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(align1024(smem_raw));
   const int b = blockIdx.y / n_head, h = blockIdx.y % n_head;
-  const bf16* kb = k + b * sb + h * sh;
-  const bf16* vb = v + b * sb + h * sh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gi = lane / 4, tq = lane % 4;
-  const int r0 = blockIdx.x * TILE + warp * 16 + gi;  // this thread's queries: r0, r0 + 8
-  const bool live0 = r0 < t, live1 = r0 + 8 < t;
+  const int q0 = blockIdx.x * ROWS;
+  const int n_tiles = (t + BT - 1) / BT;
+  const int wg = threadIdx.x / 128;
+  init_ring(&sm.own_full, sm.full, sm.empty, 1);
 
-  auto stage = [&](int s, int k0) {
-    const int nk = min(TILE, t - k0);
-    issue_tile(ks[s], kb, st, k0, nk);
-    issue_tile(vs[s], vb, st, k0, nk);
-  };
-  stage(0, 0);
-  cp_async_commit();
-  const float* lrow = lse + (int64_t)blockIdx.y * t;
-  const float* drw = drow + (int64_t)blockIdx.y * t;
-  const float l0 = live0 ? lrow[r0] : 0.f, l1 = live1 ? lrow[r0 + 8] : 0.f;
-  const float d0 = live0 ? drw[r0] : 0.f, d1 = live1 ? drw[r0 + 8] : 0.f;
-  uint32_t qa[4][4], ga[4][4];
-  load_a_rows(qa, q + b * sb + h * sh, st, r0, live0, live1, tq);
-  load_a_rows(ga, g + b * gsb + h * gsh, gst, r0, live0, live1, tq);
-  float acc[8][4];
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  for (int it = 0, k0 = 0; k0 < t; ++it, k0 += TILE) {
-    const int cur = it & 1, nk = min(TILE, t - k0);
-    if (k0 + TILE < t) stage(cur ^ 1, k0 + TILE);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-
-    uint32_t dsa[4][4];  // dS in bf16 as A fragments, per 16 keys
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* kr = &ks[cur][nt * 8 + gi][2 * tq];
-      const bf16* vr = &vs[cur][nt * 8 + gi][2 * tq];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        mma_bf16(s, qa[kk], ld_pair(kr + kk * 16), ld_pair(kr + kk * 16 + 8));
-        mma_bf16(dp, ga[kk], ld_pair(vr + kk * 16), ld_pair(vr + kk * 16 + 8));
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      load_own(sm.q, &qmap, sm.g, &gmap, &sm.own_full, q0, t, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int cs = j % STAGES;
+        mbar_wait(&sm.empty[cs], ((j / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.full[cs], 2 * BT * D * 2);
+        tma_load_4d(sm.k[cs], &kmap, &sm.full[cs], 0, j * BT, h, b);
+        tma_load_4d(sm.v[cs], &vmap, &sm.full[cs], 0, j * BT, h, b);
       }
-      const int c = nt * 8 + 2 * tq;  // this thread's key columns: c, c + 1
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool top = e < 2;
-        const float p = (c + (e & 1)) < nk ? expf(s[e] - (top ? l0 : l1)) : 0.f;
-        ds[e] = p * (dp[e] - (top ? d0 : d1));
-      }
-      dsa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    mma_rows_by_tile(acc, dsa, ks[cur], lane);
-    __syncthreads();
-  }
+  } else {  // consumers: warpgroup wg owns queries q0 + 64 wg ..
+    setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int tq = lane % 4;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+    float lse2[2], dval[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = row0 + 8 * r < t;
+      const int64_t at = (int64_t)blockIdx.y * t + row0 + 8 * r;
+      lse2[r] = ok ? lse[at] * kLog2e : 0.f;
+      dval[r] = ok ? drow[at] : 0.f;
+    }
+    const uint64_t qd = desc_k_major(sm.q + wg * 64 * D);
+    const uint64_t gd = desc_k_major(sm.g + wg * 64 * D);
+    float dq_acc[32], s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[i] = s[i] = dp[i] = 0.f;
+    uint32_t dsa[4][4];  // dS as A fragments, per 16 keys
 
-  store_rows(dq + b * xsb + h * xsh, xst, acc, r0, live0, live1, tq);
+    mbar_wait(&sm.own_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int cs = j % STAGES;
+      mbar_wait(&sm.full[cs], (j / STAGES) & 1);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      const uint64_t kd = desc_k_major(sm.k[cs]), vd = desc_k_major(sm.v[cs]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64<0>(s, qd + 2 * kk, kd + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64<0>(dp, gd + 2 * kk, vd + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      const int live = t - j * BT;  // key columns at or past it are masked
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool ok = 8 * n + 2 * tq + c < live;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * n + 2 * r + c;
+            const float p = ok ? ex2(fmaf(s[i], kLog2e, -lse2[r])) : 0.f;
+            ds[2 * r + c] = p * (dp[i] - dval[r]);
+          }
+        }
+        dsa[n / 2][(n % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        dsa[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      fence_regs(dq_acc);
+      fence_regs(dsa);
+      wgmma_fence();
+      const uint64_t km = desc_mn_major(sm.k[cs]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dq_acc, dsa[kk], km + 128 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      fence_regs(dsa);
+      if (lane == 0) mbar_arrive(&sm.empty[cs]);
+    }
+
+    store_rows(dq + b * xsb + h * xsh, xst, dq_acc, row0, t, tq);
+  }
 }
 
 template <typename T>
@@ -537,6 +572,32 @@ int launch_rowdot(const void* o, const void* g, float* drow, int batch, int n_he
   return static_cast<int>(cudaGetLastError());
 }
 
+
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* drow, void* dq, void* dk, void* dv,
+                     int batch, int n_head, int t, int64_t sb, int64_t sh, int64_t st,
+                     int64_t gsb, int64_t gsh, int64_t gst, int64_t xsb, int64_t xsh,
+                     int64_t xst, cudaStream_t s) {
+  CUtensorMap qm, km, vm, gm;
+  int err = encode_rows64(&qm, q, t, n_head, batch, st, sh, sb, BT);
+  if (!err) err = encode_rows64(&km, k, t, n_head, batch, st, sh, sb, BT);
+  if (!err) err = encode_rows64(&vm, v, t, n_head, batch, st, sh, sb, BT);
+  if (!err) err = encode_rows64(&gm, dout, t, n_head, batch, gst, gsh, gsb, BT);
+  if (err) return err;
+  const dim3 grid((t + ROWS - 1) / ROWS, batch * n_head);
+  const int dkdv_smem = (int)sizeof(DkdvSmem) + 1024, dq_smem = (int)sizeof(DqSmem) + 1024;
+  cudaFuncSetAttribute(dkdv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+  cudaFuncSetAttribute(dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  dkdv_wgmma_kernel<<<grid, WG_THREADS, dkdv_smem, s>>>(
+      qm, km, vm, gm, lse, drow, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n_head, t, xsb,
+      xsh, xst);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  dq_wgmma_kernel<<<grid, WG_THREADS, dq_smem, s>>>(qm, km, vm, gm, lse, drow,
+                                                    static_cast<bf16*>(dq), n_head, t, xsb, xsh,
+                                                    xst);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v share the strides (sb, sh, st),
@@ -545,7 +606,8 @@ int launch_rowdot(const void* o, const void* g, float* drow, int batch, int n_he
 // forward's) and drow (scratch for D) are contiguous fp32 (batch*n_head, t).
 // Launches the D pass, the dK/dV kernel and the dQ kernel in order on
 // `stream`; returns the first nonzero cudaGetLastError() (0 when all three
-// launches were accepted).
+// launches were accepted), or for bf16 hopper::kEncodeError + the CUresult
+// when a tensor map cannot be encoded.
 extern "C" int wf_flash64_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const float* lse, float* drow, void* dq,
                               void* dk, void* dv, int batch, int n_head, int t, int64_t sb,
@@ -568,20 +630,11 @@ extern "C" int wf_flash64_bwd(const void* q, const void* k, const void* v, const
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse, drow,
         static_cast<float*>(dq), n_head, t, sb, sh, st, gsb, gsh, gst, xsb, xsh, xst);
-  } else if (dtype == 1) {
-    err = launch_rowdot<bf16>(o, dout, drow, batch, n_head, t, osb, osh, ost, gsb, gsh, gst, s);
-    if (err) return err;
-    dkdv_mma_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, drow, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), n_head, t, sb, sh, st, gsb, gsh, gst, xsb, xsh, xst);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
-    dq_mma_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, drow, static_cast<bf16*>(dq), n_head, t, sb, sh,
-        st, gsb, gsh, gst, xsb, xsh, xst);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  err = launch_rowdot<bf16>(o, dout, drow, batch, n_head, t, osb, osh, ost, gsb, gsh, gst, s);
+  if (err) return err;
+  return launch_bwd_wgmma(q, k, v, dout, lse, drow, dq, dk, dv, batch, n_head, t, sb, sh, st,
+                          gsb, gsh, gst, xsb, xsh, xst, s);
 }

@@ -11,25 +11,39 @@
 // With a non-null `lse` the kernel also writes the fp32 row logsumexp
 // m + log(l) (the residual of `_fwd_kernel`'s `lse_ref`, :92-93) into a
 // (B*H, T) array for the backward kernels (csrc/flash64_bwd.cu); l is the
-// fp32 row sum of the probabilities (the TPU kernel's ones-column sum was a
-// TPU workaround). A null `lse` is inference: nothing more is written, as
-// the JAX primal `_flash64` (:141-146) skips the residual.
+// fp32 row sum of the unrounded probabilities (the TPU kernel's ones-column
+// sum was a TPU workaround). A null `lse` is inference: nothing more is
+// written, as the JAX primal `_flash64` (:141-146) skips the residual.
 //
 // Design for Hopper. The TPU kernel kept all of K and V resident in VMEM
 // (T padded to 1536: 384 KB in bf16), which does not fit the 227 KB of
-// shared memory a block may use. Here K/V stream through shared memory in
-// 64-row tiles with an online softmax (running max and sum, fp32
-// accumulator), so nothing is padded: key columns at or past T are masked
-// in the kernel and query rows past T are not written.
+// shared memory a block may use. Here K/V stream through shared memory
+// with an online softmax (running max and sum, fp32 accumulator), so
+// nothing is padded: key columns at or past T are masked in the kernel and
+// query rows past T are not written.
 //
 // What bounds it: the work is 4*T*T*64 flops per (batch, head) against
-// 4*T*64 elements of traffic, so it is bound by arithmetic.
-//   - bf16: the two products run on the tensor cores with
-//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate); each warp owns 16
-//     query rows, keeps S, P and the output accumulator in registers in
-//     the mma fragment layout, and reads K and a transposed V tile from
-//     shared memory (rows padded to 72 elements: conflict-free fragment
-//     reads). No wgmma, TMA or double buffering yet.
+// 4*T*64 elements of traffic, so it is bound by arithmetic, and at d_head
+// 64 the exponentials are as scarce as the tensor cores: one ex2 per 256
+// product flops, about what the SMs' special-function units issue at the
+// bf16 peak.
+//   - bf16 (csrc/hopper.cuh): a block takes 128 query rows with three
+//     warpgroups. The producer warpgroup (registers cut to 24 with
+//     setmaxnreg) has one thread issue TMA loads: Q once, then K and V in
+//     128-key tiles into a 4-stage shared-memory ring under mbarriers
+//     (full: the bytes arrived; empty: both consumers are done). Each of
+//     the two consumer warpgroups (registers raised to 240) owns 64 rows:
+//     S = Q K^T is wgmma m64n128k16 from shared memory (Q, K K-major in
+//     the 128-byte swizzle), the online softmax runs in registers (ex2
+//     with log2 e folded into one FMA, a per-thread partial row sum reduced
+//     across the quad once at the end), P turns from accumulator into bf16
+//     A fragments in registers, and O += P V is wgmma m64n64k16 with A
+//     from registers and V read from its TMA tile as an MN-major B (no
+//     transposed copy). The exponentials overlap the products by
+//     ping-pong: named barriers let one warpgroup issue its products while
+//     the other runs its softmax. (The other schedule tried, each
+//     warpgroup running the softmax of tile j under its own P V of tile
+//     j - 1, measured slower on the H100; PERF.md.)
 //   - fp32: the contract forbids TF32, so the products are fp32 FMA
 //     against the card's 67 TFLOP/s rate: one thread owns one query row
 //     (q and the accumulator in registers), and the block's threads read
@@ -39,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -137,37 +153,27 @@ __global__ void __launch_bounds__(BQ) flash64_fwd_fma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on wgmma, fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int MQ = 64;    // query rows per block: 4 warps x 16
-constexpr int MK = 64;    // keys per shared-memory tile
-constexpr int PAD = 72;   // padded row length of the shared tiles (elements)
-constexpr int MMA_THREADS = 128;
-
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col). Fragment
-// layout (g = lane / 4, q = lane % 4): a0 (g, 2q..2q+1), a1 (g+8, 2q..),
-// a2 (g, 2q+8..), a3 (g+8, 2q+8..); b0 (k 2q..2q+1, n g), b1 (k 2q+8.., n g);
-// d0,d1 (g, 2q..2q+1), d2,d3 (g+8, 2q..2q+1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int FQ = 128;           // query rows per block: two consumer warpgroups of 64
+constexpr int FK = 128;           // keys per ring tile
+constexpr int FSTAGES = 4;        // ring depth
+constexpr int FWD_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+struct __align__(1024) FwdSmem {
+  bf16 q[FQ * D];           // warpgroup w's 64 rows at w * 64 * D
+  bf16 k[FSTAGES][FK * D];  // [key][dim], 128-byte swizzle
+  bf16 v[FSTAGES][FK * D];
+  uint64_t q_full;
+  uint64_t full[FSTAGES];
+  uint64_t empty[FSTAGES];
+};
+constexpr int FWD_SMEM = (int)sizeof(FwdSmem) + 1024;  // + slack to align the base
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -179,124 +185,161 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Same addressing as the FMA kernel; rows must be 16-byte aligned (the
-// wrapper checks the pointers and strides).
-__global__ void __launch_bounds__(MMA_THREADS) flash64_fwd_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int n_head, int t, int64_t sb,
-    int64_t sh, int64_t st, int64_t osb, int64_t osh, int64_t ost) {
-  __shared__ __align__(16) bf16 ks[MK][PAD];  // K tile, [key][dim]
-  __shared__ __align__(16) bf16 vt[D][PAD];   // V tile transposed, [dim][key]
+// One tile of the online softmax on this thread's two rows (r = 0: row g,
+// r = 1: row g + 8) of a 64 x 128 score tile in the accumulator layout
+// (s[4n + 2r + c] is column 8n + 2tq + c). Columns at or past `live` are
+// masked. m is the running max in log2 units; alpha is exp(m_old - m_new)
+// for the old sums, lsum this tile's partial row sums, p the rounded
+// probabilities as the A fragments of the next P V (k-step n / 2).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[8][4], float (&m)[2],
+                                             float (&alpha)[2], float (&lsum)[2], int live,
+                                             int tq) {
+  if (live < FK) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (8 * n + 2 * tq + c >= live) s[4 * n + c] = s[4 * n + 2 + c] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // column 0 of a tile is always a real key, so the new max is finite
+    const float mn = fmaxf(m[r], quad_max(mx[r]) * kLog2e);
+    alpha[r] = ex2(m[r] - mn);  // 0 on the first tile
+    m[r] = mn;
+    lsum[r] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = ex2(fmaf(s[4 * n + i], kLog2e, -m[i / 2]));
+    lsum[0] += e[0] + e[1];
+    lsum[1] += e[2] + e[3];
+    p[n / 2][(n % 2) * 2 + 0] = pack_bf16(e[0], e[1]);
+    p[n / 2][(n % 2) * 2 + 1] = pack_bf16(e[2], e[3]);
+  }
+}
 
+// grid (ceil(T / 128), B * H); q/k/v through the tensor maps (rows of
+// (b, h) at coordinates {0, row, h, b}), o addressed as
+// base + b*osb + h*osh + row*ost + c.
+__global__ void __launch_bounds__(FWD_THREADS, 1) flash64_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, float* __restrict__ lse,
+    int n_head, int t, int64_t osb, int64_t osh, int64_t ost) {
+  extern __shared__ uint8_t smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(align1024(smem_raw));
   const int b = blockIdx.y / n_head, h = blockIdx.y % n_head;
-  const int64_t base = b * sb + h * sh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int r0 = blockIdx.x * MQ + warp * 16 + g;  // this thread's rows: r0, r0 + 8
-  const bool live0 = r0 < t, live1 = r0 + 8 < t;
+  const int q0 = blockIdx.x * FQ;
+  const int n_tiles = (t + FK - 1) / FK;
+  const int wg = threadIdx.x / 128;
 
-  uint32_t qa[4][4];  // Q as A fragments, one per 16-wide slice of d
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * tq;
-    const bf16* q0 = q + base + (int64_t)r0 * st;
-    const bf16* q1 = q0 + 8 * st;
-    qa[kk][0] = live0 ? ld_pair(q0 + c) : 0u;
-    qa[kk][1] = live1 ? ld_pair(q1 + c) : 0u;
-    qa[kk][2] = live0 ? ld_pair(q0 + c + 8) : 0u;
-    qa[kk][3] = live1 ? ld_pair(q1 + c + 8) : 0u;
+    for (int s = 0; s < FSTAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[8][4];  // output, 8 slices of 8 dims
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < t; k0 += MK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < MK * (D / 8); i += MMA_THREADS) {
-      {  // K: 16-byte chunks, row-major
-        const int r = i / 8, c8 = (i % 8) * 8;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < t) kv = *reinterpret_cast<const uint4*>(k + base + (int64_t)(k0 + r) * st + c8);
-        *reinterpret_cast<uint4*>(&ks[r][c8]) = kv;
-      }
-      {  // V: a warp covers 32 keys of one 8-dim chunk, so the transposed
-         // stores land in distinct banks
-        const int r = i % MK, c8 = (i / MK) * 8;
-        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < t) vv = *reinterpret_cast<const uint4*>(v + base + (int64_t)(k0 + r) * st + c8);
-        const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) vt[c8 + j][r] = ve[j];
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(&sm.q_full, FQ * D * 2);
+      tma_load_4d(sm.q, &qmap, &sm.q_full, 0, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int cs = j % FSTAGES;
+        mbar_wait(&sm.empty[cs], ((j / FSTAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.full[cs], 2 * FK * D * 2);
+        tma_load_4d(sm.k[cs], &kmap, &sm.full[cs], 0, j * FK, h, b);
+        tma_load_4d(sm.v[cs], &vmap, &sm.full[cs], 0, j * FK, h, b);
       }
     }
-    __syncthreads();
+  } else {  // consumers
+    setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const uint64_t qd = desc_k_major(sm.q + wg * 64 * D);
+    float o_acc[32], s[64];
+    uint32_t p[8][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0u;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    float s[8][4];  // S = Q K^T for 8 slices of 8 keys
+    mbar_wait(&sm.q_full, 0);
+    if (wg == 1) named_bar_arrive(1, 256);  // warpgroup 0 issues first
+    // Step j issues S of tile j (j < n_tiles) and P V of tile j - 1 (j > 0).
+    for (int j = 0; j <= n_tiles; ++j) {
+      const bool has_s = j < n_tiles, has_pv = j > 0;
+      const int cs = j % FSTAGES, ps = (j + FSTAGES - 1) % FSTAGES;
+      if (has_s) mbar_wait(&sm.full[cs], (j / FSTAGES) & 1);
+      named_bar_sync(1 + wg, 256);  // this warpgroup's turn on the tensor cores
+      fence_regs(o_acc);
+      fence_regs(s);
+      fence_regs(p);
+      wgmma_fence();
+      if (has_s) {
+        const uint64_t kd = desc_k_major(sm.k[cs]);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kr = &ks[nt * 8 + g][2 * tq];
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128<0>(s, qd + 2 * kk, kd + 2 * kk, kk > 0);
+        wgmma_commit();
+      }
+      if (has_pv) {
+        const uint64_t vd = desc_mn_major(sm.v[ps]);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mma_bf16(s[nt], qa[kk], ld_pair(kr + kk * 16), ld_pair(kr + kk * 16 + 8));
+        for (int kk = 0; kk < 8; ++kk) wgmma_rs_n64<1>(o_acc, p[kk], vd + 128 * kk, 1);
+        wgmma_commit();
+      }
+      named_bar_arrive(1 + (wg ^ 1), 256);  // the other warpgroup's turn
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      fence_regs(p);
+      if (has_pv && lane == 0) mbar_arrive(&sm.empty[ps]);
+      if (has_s) {
+        fence_regs(s);
+        float alpha[2], lsum[2];
+        uint32_t pn[8][4];
+        softmax_tile(s, pn, m, alpha, lsum, t - j * FK, tq);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o_acc[i] *= alpha[(i / 2) % 2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + lsum[r];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[i][e] = pn[i][e];
+      }
     }
+    if (wg == 0) named_bar_sync(1, 256);  // warpgroup 1's last arrival
 
-    float mx0 = m0, mx1 = m1;
+    const int row0 = q0 + wg * 64 + warp * 16 + g;
+    const float lq[2] = {quad_sum(l[0]), quad_sum(l[1])};  // the whole warp shuffles
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = k0 + nt * 8 + 2 * tq;
-      if (col >= t) s[nt][0] = s[nt][2] = -INFINITY;  // ragged edge: masked
-      if (col + 1 >= t) s[nt][1] = s[nt][3] = -INFINITY;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= t) continue;
+      const float lr = lq[r];
+      bf16* orow = o + b * osb + h * osh + (int64_t)row * ost + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            pack_bf16(o_acc[4 * n + 2 * r] / lr, o_acc[4 * n + 2 * r + 1] / lr);
+      if (lse != nullptr && tq == 0) lse[(int64_t)blockIdx.y * t + row] = m[r] * kLn2 + logf(lr);
     }
-    mx0 = quad_max(mx0);  // key k0 is real, so both are finite
-    mx1 = quad_max(mx1);
-    const float a0 = expf(m0 - mx0), a1 = expf(m1 - mx1);  // 0 on the first tile
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int dn = 0; dn < 8; ++dn) {
-      acc[dn][0] *= a0;
-      acc[dn][1] *= a0;
-      acc[dn][2] *= a1;
-      acc[dn][3] *= a1;
-    }
-
-    uint32_t pa[4][4];  // P in bf16 as A fragments, one per 16 keys
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = expf(s[nt][0] - mx0), p1 = expf(s[nt][1] - mx0);
-      const float p2 = expf(s[nt][2] - mx1), p3 = expf(s[nt][3] - mx1);
-      l0 += p0 + p1;  // the row sum is of the fp32 probabilities
-      l1 += p2 + p3;
-      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int dn = 0; dn < 8; ++dn) {
-      const bf16* vr = &vt[dn * 8 + g][2 * tq];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mma_bf16(acc[dn], pa[kk], ld_pair(vr + kk * 16), ld_pair(vr + kk * 16 + 8));
-    }
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  bf16* o0 = o + b * osb + h * osh + (int64_t)r0 * ost + 2 * tq;
-  bf16* o1 = o0 + 8 * ost;
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
-    if (live0) *reinterpret_cast<uint32_t*>(o0 + dn * 8) = pack_bf16(acc[dn][0] / l0, acc[dn][1] / l0);
-    if (live1) *reinterpret_cast<uint32_t*>(o1 + dn * 8) = pack_bf16(acc[dn][2] / l1, acc[dn][3] / l1);
-  }
-  if (lse != nullptr && tq == 0) {  // m and l are the same across the quad
-    float* lrow = lse + (int64_t)blockIdx.y * t;
-    if (live0) lrow[r0] = m0 + logf(l0);
-    if (live1) lrow[r0 + 8] = m1 + logf(l1);
   }
 }
 
@@ -304,7 +347,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash64_fwd_mma_kernel(
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lse` is a
 // contiguous fp32 (batch*n_head, t) array or null. Returns the launch's
-// cudaGetLastError() (0 when the kernel was accepted).
+// cudaGetLastError() (0 when the kernel was accepted), or for bf16
+// hopper::kEncodeError + the CUresult when a tensor map cannot be encoded.
 extern "C" int wf_flash64_fwd(const void* q, const void* k, const void* v, void* o,
                               float* lse, int batch, int n_head, int t, int64_t sb, int64_t sh,
                               int64_t st, int64_t osb, int64_t osh, int64_t ost,
@@ -316,13 +360,18 @@ extern "C" int wf_flash64_fwd(const void* q, const void* k, const void* v, void*
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, n_head, t, sb, sh, st,
         osb, osh, ost);
-  } else if (dtype == 1) {
-    const dim3 grid((t + MQ - 1) / MQ, batch * n_head);
-    flash64_fwd_mma_kernel<<<grid, MMA_THREADS, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, n_head, t, sb, sh, st, osb, osh, ost);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  int err = encode_rows64(&qm, q, t, n_head, batch, st, sh, sb, FQ);
+  if (!err) err = encode_rows64(&km, k, t, n_head, batch, st, sh, sb, FK);
+  if (!err) err = encode_rows64(&vm, v, t, n_head, batch, st, sh, sb, FK);
+  if (err) return err;
+  cudaFuncSetAttribute(flash64_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       FWD_SMEM);
+  const dim3 grid((t + FQ - 1) / FQ, batch * n_head);
+  flash64_fwd_wgmma_kernel<<<grid, FWD_THREADS, FWD_SMEM, s>>>(
+      qm, km, vm, static_cast<bf16*>(o), lse, n_head, t, osb, osh, ost);
   return static_cast<int>(cudaGetLastError());
 }

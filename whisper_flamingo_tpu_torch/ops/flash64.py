@@ -142,7 +142,8 @@ def _check_qkv(qh, kh, vh, what: str) -> int:
 
 
 def _check_rows16(what: str, *xs: torch.Tensor) -> None:
-    """The bf16 tensor-core kernels read rows in 16-byte pieces."""
+    """The bf16 kernels load rows by TMA, which takes 16-byte aligned bases
+    and strides."""
     for x in xs:
         if x.dtype == torch.bfloat16 and (
             any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16
