@@ -19,9 +19,14 @@ each printing one JSON line:
    bound (with TF/s and the bound's share of the time), the plain
    version's and SDPA's, and the host time per call.
 3. decode_attn: the decode-attention kernel against its plain version at
-   T_max 448, D 768, 12 heads: 8 rows with a scalar and with per-row
-   offsets, 120 rows (beam 15 x batch 8) with a scalar offset; output and
-   both updated caches. Times beside the bound.
+   T_max 448, D 768, 12 heads: 8 rows with a scalar offset (a Python int,
+   as the decode loop passes it) and with per-row offsets (a device
+   tensor), 120 rows (beam 15 x batch 8) with a scalar offset; output and
+   both updated caches. Beside the bound, at offset 66: the kernel's and
+   SDPA's device time per call from the profiler, with L2 flushed by a 64
+   MB read before each call (the decode loop's case; the kernels line's
+   ``ms`` and ``library_ms``) and warm; their back-to-back event times and
+   host time per call; the plain version's time.
 4. end to end through the port's entry points (``load_model("small")``,
    random weights from a seed; ``log_mel_spectrogram`` on the card;
    ``DecodingTask``) on the bench protocol: batch 8 of 30 s synthetic
@@ -102,10 +107,12 @@ each printing one JSON line:
 15. flash64_fwd_probe: the probe entry point
     (``tools.flash64_fwd_probe.run``) on bf16 (8, 12, 1500, 64) with the
     probe's scales: shipped, augv and csbound timed in turns. Each variant
-    kernel (``csrc/flash64_fwd_probe.cu``) against its plain version and
-    against the shipped kernel (1e-2 of the output scale); two launches
-    give the same bits. Times beside the bound, the plain versions' and
-    SDPA's.
+    kernel (``csrc/flash64_fwd_probe.cu``, on the shipped forward's frame)
+    against its plain version and against the shipped kernel (1e-2 of the
+    output scale); two launches give the same bits. Times beside the
+    bound, the plain versions' and SDPA's; then each kernel alone in turns
+    (csbound with its kmax computed beforehand; the kernels line takes
+    these) and the kmax reduction's own time.
 16. mma_pair: the pair kernel (``csrc/mma_pair.cu``) against
     ``pair_chain_plain`` at iters 1, 2, 3 for d 64, 128, 256 (one bf16 ulp
     of the output scale; bit-equal reruns); the first iteration after which
@@ -196,6 +203,35 @@ def host_ms(torch, fn, calls: int = 20) -> float:
     return out
 
 
+def _profiled_ms(torch, fn, calls: int, name: str = "", flush=None) -> float:
+    """Device time per call from the profiler: the kernels whose names hold
+    ``name`` (every kernel for ""), over ``calls`` calls. With ``flush`` (a
+    tensor larger than the 50 MB L2) the tensor is read (summed) before
+    each call, so each call finds its inputs in device memory and L2 full
+    of clean lines, as after the decoder's weight reads; what the sum runs
+    on the device is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    skip = set()
+    if flush is not None:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush.sum()
+            torch.cuda.synchronize()
+        skip = {e.key for e in prof.key_averages()}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if flush is not None:
+                flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    busy_ms, launches = _device_busy(torch, prof, name, skip)
+    # per launch over the launches seen, times the launches per call: a
+    # profile that drops a few records then still gives the time per call
+    return busy_ms / max(launches, 1) * max(1, round(launches / calls))
+
+
 def ptxas_report(log: str):
     """{mangled kernel name: {registers, spill_stores, spill_loads}} from
     nvcc -Xptxas -v."""
@@ -260,6 +296,7 @@ def phase_decode_attn(torch, decode_attn, gen):
     dh = D_MODEL // N_HEAD
     rows, results = [], {}
     off = SAMPLE_LEN + 2  # the last step of the bench protocol (3 initial tokens)
+    flush = torch.zeros(32 << 20, dtype=torch.bfloat16, device="cuda")  # 64 MB > the L2
     for dtype_name, tol in (("bfloat16", 2e-2), ("float32", 1e-5)):
         dtype = getattr(torch, dtype_name)
         for b, mode in ((8, "scalar"), (8, "per_row"), (BATCH * BEAM, "scalar")):
@@ -267,8 +304,8 @@ def phase_decode_attn(torch, decode_attn, gen):
                          for _ in range(3))
             kc = (torch.randn(b, T_MAX, D_MODEL, generator=gen, device="cuda") * 0.5).to(dtype)
             vc = (torch.randn(b, T_MAX, D_MODEL, generator=gen, device="cuda") * 0.5).to(dtype)
-            if mode == "scalar":
-                offset = torch.tensor([off], dtype=torch.int32, device="cuda")
+            if mode == "scalar":  # by value, as the decode loop passes it
+                offset = off
             else:
                 offset = torch.randint(0, T_MAX, (b,), generator=gen, device="cuda",
                                        dtype=torch.int32)
@@ -286,20 +323,29 @@ def phase_decode_attn(torch, decode_attn, gen):
             row = {"dtype": dtype_name, "rows": b, "offset": mode, "max_abs_err": err,
                    "cache_max_abs_err": cache_err, "tol": tol}
             if mode == "scalar":
-                row["ms"] = time_ms(
-                    lambda: decode_attn.fused_step(q, kn, vn, kc, vc, offset, N_HEAD), 200, 10
-                )
-                row["plain_ms"] = time_ms(
-                    lambda: decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, offset, N_HEAD), 20
-                )
-                # SDPA over the same cached prefix (the attention only: it
-                # does not write the cache)
                 qh = q.view(b, 1, N_HEAD, dh).transpose(1, 2)
                 kh = kc[:, : off + 1].view(b, off + 1, N_HEAD, dh).transpose(1, 2)
                 vh = vc[:, : off + 1].view(b, off + 1, N_HEAD, dh).transpose(1, 2)
-                row["library_ms"] = time_ms(
-                    lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=dh ** -0.25), 200, 10
+                step = lambda: decode_attn.fused_step(q, kn, vn, kc, vc, offset, N_HEAD)
+                # SDPA over the same cached prefix (the attention only: it
+                # does not write the cache); a yardstick the port never calls
+                sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=dh ** -0.25)
+                # back to back the host's enqueue can set the pace, so the
+                # device time per call comes from the profiler: with L2
+                # flushed before each call (the decode loop's case: a
+                # layer's cache was last read a whole step earlier) as
+                # ``ms``, and warm
+                row["ms"] = _profiled_ms(torch, step, 100, "decode_attn", flush)
+                row["warm_ms"] = _profiled_ms(torch, step, 200, "decode_attn")
+                row["back_to_back_ms"] = time_ms(step, 200, 10)
+                row["host_ms"] = host_ms(torch, step, 200)
+                row["plain_ms"] = time_ms(
+                    lambda: decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, offset, N_HEAD), 20
                 )
+                row["library_ms"] = _profiled_ms(torch, sdpa, 100, "", flush)
+                row["library_warm_ms"] = _profiled_ms(torch, sdpa, 200)
+                row["library_back_to_back_ms"] = time_ms(sdpa, 200, 10)
+                row["library_host_ms"] = host_ms(torch, sdpa, 200)
                 item = q.element_size()
                 # the K/V prefix read once, the new token's q/k/v read, the
                 # output and the new K/V row written
@@ -913,13 +959,16 @@ def phase_serving_int8(torch, wt, mel, options, rng):
     return runs
 
 
-def _device_busy(torch, prof):
-    """The sum of the kernels' device times in a profile, ms."""
+def _device_busy(torch, prof, name: str = "", skip=()):
+    """The sum of the device times of the kernels in a profile whose names
+    hold ``name`` (all of them for "") and are not in ``skip``, ms, and
+    their launches."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+              and name in e.key and e.key not in skip]
     return sum(dev_us(e) for e in events) / 1e3, sum(e.count for e in events)
 
 
@@ -1062,8 +1111,21 @@ def phase_flash64_variants(torch, flash64):
     bound_ms, bound_by = bound(4.0 * bh * t * t * 64, 4.0 * bh * t * 64 * q.element_size(),
                                "bfloat16")
     sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
+    # each kernel alone, in turns (csbound's call with kmax computed
+    # beforehand: the probe's call above also runs the reduction), and kmax
+    kmax_t = fv.key_norm_max(k)
+    alone = {"shipped": lambda: flash64.flash64_forward(q, k, v),
+             "augv": lambda: fv.flash64_fwd_augv(q, k, v),
+             "csbound+augv": lambda: fv.flash64_fwd_csbound(q, k, v, kmax_t)}
+    alone_turns = {name: [] for name in probe.VARIANTS}
+    for name in probe.VARIANTS + probe.VARIANTS[::-1]:
+        alone_turns[name].append(time_ms(alone[name], 20))
+    alone_ms = {name: sum(x) / len(x) for name, x in alone_turns.items()}
+    kmax_ms = time_ms(lambda: fv.key_norm_max(k), 20)
     out = {"phase": "flash64_fwd_probe", "shape": [BATCH, N_HEAD, t, 64],
            "shipped_ms": rows["shipped"]["ms"], "shipped_ms_turns": rows["shipped"]["ms_turns"],
+           "shipped_alone_ms": alone_ms["shipped"],
+           "shipped_alone_ms_turns": alone_turns["shipped"], "kmax_ms": kmax_ms,
            "library_ms": sdpa_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "launches": launches, "variants": {}}
     for name, (fn, plain) in kernels.items():
@@ -1074,7 +1136,8 @@ def phase_flash64_variants(torch, flash64):
         row = {"max_abs_err": max_err(got, ref), "scale": scale, "rel_tol": 1e-2,
                "max_abs_delta_vs_shipped": rows[name]["max_abs_delta_vs_shipped"],
                "same_bits_twice": torch.equal(got, again), "ms": rows[name]["ms"],
-               "ms_turns": rows[name]["ms_turns"],
+               "ms_turns": rows[name]["ms_turns"], "alone_ms": alone_ms[name],
+               "alone_ms_turns": alone_turns[name],
                "plain_ms": time_ms(lambda: plain(q, k, v), 3, 1), "library_ms": sdpa_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches[name]}
         out["variants"][name] = row
@@ -1178,7 +1241,8 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "libraries": [os.path.relpath(p, ROOT) for p in libs],
           "ptxas": {n: ptxas_report(cuda_build.build_log(n))
-                    for n in ("flash64_fwd", "flash64_bwd")}})
+                    for n in ("flash64_fwd", "flash64_bwd", "flash64_fwd_probe",
+                              "decode_attn")}})
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # -- 2, 3. kernels against their plain versions ---------------------------
@@ -1310,11 +1374,13 @@ def main() -> int:
         entry("decode_mlp", "whisper_flamingo_tpu_torch/csrc/decode_mlp.cu",
               "whisper_flamingo_tpu/ops/decode_mlp.py:70",
               serving["greedy_int8_mlp"]["launches"]["decode_mlp"], dm),
+        # the variant kernels alone (the probe's csbound call also runs kmax)
         entry("flash64_fwd_augv", "whisper_flamingo_tpu_torch/csrc/flash64_fwd_probe.cu",
-              "tools/flash64_fwd_probe.py:102", fv["augv"]["launches"], fv["augv"]),
+              "tools/flash64_fwd_probe.py:102", fv["augv"]["launches"],
+              {**fv["augv"], "ms": fv["augv"]["alone_ms"]}),
         entry("flash64_fwd_csbound", "whisper_flamingo_tpu_torch/csrc/flash64_fwd_probe.cu",
               "tools/flash64_fwd_probe.py:102", fv["csbound+augv"]["launches"],
-              fv["csbound+augv"]),
+              {**fv["csbound+augv"], "ms": fv["csbound+augv"]["alone_ms"]}),
         entry("mma_pair", "whisper_flamingo_tpu_torch/csrc/mma_pair.cu",
               "tools/packed_probe2.py:53", mp["launches"], mp),
     ]

@@ -129,15 +129,17 @@ def test_flash64_autograd_through_head_split_views(gen, dtype):
 # The wgmma forms of csrc/hopper.cuh, one product each (csrc/wgmma_check.cu):
 # bf16 products are exact in fp32, so only the order of the fp32 sum over
 # 16 * ksteps terms differs from torch.matmul's.
-WGMMA_FORMS = {"ss": 0, "rs": 1, "rs_t": 2, "ss_t": 3}
+WGMMA_FORMS = {"ss": 0, "rs": 1, "rs_t": 2, "ss_t": 3, "rs_n8": 4}
 
 
 @pytest.mark.parametrize("ksteps", [1, 4])
 @pytest.mark.parametrize("form,n", [("ss", 64), ("ss", 128), ("rs", 64), ("rs_t", 64),
-                                    ("ss_t", 64)])
+                                    ("ss_t", 64), ("rs_n8", 8)])
 def test_wgmma_form_matches_matmul(gen, form, n, ksteps):
     """D (64 x n) = A (64 x 16 ksteps) B through TMA tiles in the 128-byte
-    swizzle: K-major B stored [n][k], MN-major B (``_t``) stored [k][n]."""
+    swizzle: K-major B stored [n][k], MN-major B (``_t``) stored [k][n];
+    ``rs_n8`` is the forward variants' row-sum form, its B (8 x 64, [n][k])
+    in the unswizzled core-matrix layout of ``desc_plain``."""
     import ctypes
 
     from whisper_flamingo_tpu_torch.ops import cuda_build
@@ -192,6 +194,38 @@ def test_flash64_bf16_tile_edges_through_head_split_views(gen, t):
         assert err <= BWD_REL[torch.bfloat16] * max(scale, 1.0), (name, err, scale)
 
 
+# the shipped bf16 forward's output bits on fixed inputs (numpy seed 0,
+# (2, 3, T, 64), q and k 0.3 N(0, 1), v N(0, 1)), recorded from the kernel
+# before its softmax became a policy of csrc/flash64_fwd_frame.cuh: sha256
+# of o (as int16) and of the lse (as int32)
+SHIPPED_DIGESTS = {129: ("7e766761e3c60136", "3e0d8bd705617e7d"),
+                   1500: ("90425234a364434d", "02a6e7f65f4a181b")}
+
+
+def _digest(x):
+    import hashlib
+
+    view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    return hashlib.sha256(x.contiguous().view(view).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _probe_inputs(t, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((2, 3, t, 64), dtype=np.float32) * 0.3 for _ in range(2))
+    v = rng.standard_normal((2, 3, t, 64), dtype=np.float32)
+    return tuple(torch.from_numpy(x).cuda().bfloat16() for x in (q, k, v))
+
+
+@pytest.mark.parametrize("t", [129, 1500])
+def test_flash64_shipped_forward_bits_unchanged(gen, t):
+    """The shipped forward on the frame gives the bits it gave before the
+    frame split, with and without the lse."""
+    q, k, v = _probe_inputs(t)
+    o, lse = flash64.flash64_forward(q, k, v, with_lse=True)
+    assert torch.equal(o, flash64.flash64_forward(q, k, v))
+    assert (_digest(o), _digest(lse)) == SHIPPED_DIGESTS[t]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,per_row", [(3, False), (3, True), (40, False)])
 def test_decode_attn_kernel_matches_plain(gen, dtype, rows, per_row):
@@ -210,6 +244,48 @@ def test_decode_attn_kernel_matches_plain(gen, dtype, rows, per_row):
         ref = decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, off, n_head)
         assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
         assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+@pytest.mark.parametrize("dtype,rows,d,n_head", [
+    (torch.bfloat16, 8, 768, 12), (torch.bfloat16, 120, 768, 12),
+    (torch.float32, 8, 256, 8), (torch.float32, 8, 512, 4),
+    (torch.float32, 120, 256, 8), (torch.bfloat16, 120, 512, 4),
+])
+def test_decode_attn_kernel_at_whisper_cache_length(gen, dtype, rows, d, n_head):
+    """t_max 448 (Whisper's n_text_ctx): offsets across the chunk edges of
+    both modes (32, 64 and 128 positions at bf16 d_head 64) and up to the
+    last position, scalar and per row: d_head 64 in bf16 at 8 rows (the
+    latency mode) and 120 (the throughput mode); fp32 at d_head 32 and 128
+    in both modes; bf16 d_head 128 at 120 rows."""
+    t_max = 448
+    q, kn, vn = (torch.randn(rows, 1, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    kc = (torch.randn(rows, t_max, d, generator=gen, device="cuda") * 0.5).to(dtype)
+    vc = (torch.randn(rows, t_max, d, generator=gen, device="cuda") * 0.5).to(dtype)
+    per_row = torch.randint(0, t_max, (rows,), generator=gen, device="cuda", dtype=torch.int32)
+    for off in (0, 15, 16, 31, 32, 63, 64, 66, 127, 128, 191, 192, 255, 256, t_max - 1,
+                per_row):
+        kc2, vc2 = kc.clone(), vc.clone()
+        out, _, _ = decode_attn.fused_step(q, kn, vn, kc, vc, off, n_head)
+        ref = decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, off, n_head)
+        assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype], off
+        assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+def test_decode_attn_smem_bytes_match_the_kernel(gen):
+    """The wrapper's shared-memory sizing is the C side's."""
+    import ctypes
+
+    from whisper_flamingo_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("decode_attn").wf_decode_attn_smem_bytes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    for t_max in (1, 40, 448, 1500, 20000):
+        for dh in (32, 64, 128):
+            for item in (2, 4):
+                for latency in (False, True):
+                    assert (fn(t_max, dh, item, int(latency))
+                            == decode_attn.smem_bytes(t_max, dh, item, latency))
 
 
 def test_decode_attn_kernel_refuses_what_it_cannot_take(gen):
@@ -364,12 +440,13 @@ PROBE_REL = 2.0 ** -7
 
 
 @pytest.mark.parametrize("variant", ["augv", "csbound"])
-@pytest.mark.parametrize("t", [1, 63, 300, 1500])
+@pytest.mark.parametrize("t", [1, 63, 127, 129, 300, 1500])
 def test_flash64_variant_kernels_match_plain(gen, variant, t):
-    """The forward variants at the probe's scales (q, k 0.3 N(0, 1)); the
-    online softmax of augv rounds its probabilities against a running max,
-    so it is held at the shipped kernel's 1e-2 of the output scale; two
-    launches give the same bits."""
+    """The forward variants at the probe's scales (q, k 0.3 N(0, 1)), at the
+    edges of the frame's 128-row blocks and tiles (T % 4 != 0 among them);
+    the online softmax of augv rounds its probabilities against a running
+    max, so it is held at the shipped kernel's 1e-2 of the output scale;
+    two launches give the same bits."""
     from whisper_flamingo_tpu_torch.ops import flash64_variants as fv
 
     q, k = ((torch.randn(2, 3, t, 64, generator=gen, device="cuda") * 0.3).bfloat16()
@@ -381,6 +458,8 @@ def test_flash64_variant_kernels_match_plain(gen, variant, t):
     out, again = fn(q, k, v), fn(q, k, v)
     assert fn.launches == before + 2
     assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    if variant == "csbound":  # kmax computed beforehand, as when timed alone
+        assert torch.equal(fn(q, k, v, fv.key_norm_max(k)), out)
     ref = plain(q, k, v)
     scale = max(ref.float().abs().max().item(), 1.0)
     assert torch.isfinite(out).all() and (out.float() - ref.float()).abs().max().item() <= 1e-2 * scale

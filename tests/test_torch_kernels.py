@@ -99,3 +99,32 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
     assert flash64.flash64_forward.launches == 0
     assert flash64.flash64_backward.launches == 0
     assert decode_attn.fused_step.launches == 0
+
+
+@pytest.mark.parametrize("latency", [False, True])
+def test_decode_attn_smem_sizing(latency):
+    """The wrapper's shared-memory sizing of the decode-attention kernel:
+    chunk 0 of K and V plus the ring (5 x 8 KB in the latency mode, 4 x 4 KB
+    in the throughput mode), the new row, the warps' V partials (16 warps,
+    4) and t_max fp32 logits; in the throughput mode `small`'s bf16 step at
+    t_max 448 stays under the 20 KB that lets 11 blocks share an H100 SM,
+    and the 227 KB limit is reached only by caches far past Whisper's 448
+    positions."""
+    chunks, warps = (5 * 8192, 16) if latency else (4 * 4096, 4)
+    assert (decode_attn.smem_bytes(448, 64, 2, latency)
+            == chunks + 256 + 4 * (warps * 64 + 448))
+    assert (decode_attn.smem_bytes(448, 128, 4, latency)
+            == chunks + 1024 + 4 * (warps * 128 + 448))
+    if not latency:
+        assert decode_attn.smem_bytes(448, 64, 2, latency) + 1024 <= 228 * 1024 // 11
+    assert decode_attn.smem_bytes(448, 128, 4, latency) <= decode_attn.SMEM_LIMIT
+    assert decode_attn.smem_bytes(60000, 128, 4, latency) > decode_attn.SMEM_LIMIT
+
+
+def test_decode_attn_latency_mode_rule():
+    """At most two (row, head) blocks per SM take the latency mode: `small`'s
+    greedy b8 step (96 blocks) on an H100's 132 SMs, not its beam-15 step
+    (1,440)."""
+    assert decode_attn.latency_mode(8 * 12, 132)
+    assert decode_attn.latency_mode(264, 132) and not decode_attn.latency_mode(265, 132)
+    assert not decode_attn.latency_mode(120 * 12, 132)

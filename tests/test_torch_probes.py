@@ -108,10 +108,15 @@ def test_csbound_underflow_matches_jax(jfwd, interpret):
     np.testing.assert_allclose(got[1], ref[1], atol=1e-5)
 
 
-def test_key_norm_max():
-    k = torch.from_numpy(_qkv(50, seed=2)[1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_key_norm_max(dtype):
+    """The fused reduction (fp32 inside, no fp32 copy of K) against float64,
+    on fp32 keys and on the bf16 keys the kernel reads."""
+    k = torch.from_numpy(_qkv(50, seed=2)[1]).to(dtype)
     want = torch.linalg.vector_norm(k.double(), dim=-1).amax(dim=-1)
-    torch.testing.assert_close(flash64_variants.key_norm_max(k).double(), want, rtol=1e-6, atol=0)
+    got = flash64_variants.key_norm_max(k)
+    assert got.dtype == torch.float32 and got.shape == (2,)
+    torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=0)
 
 
 def _pair_operands(d, seed, rows=512, n=1536):
@@ -162,6 +167,15 @@ def test_probe_wrappers_device_rule():
     assert counts == (flash64_variants.flash64_fwd_augv.launches,
                       flash64_variants.flash64_fwd_csbound.launches,
                       mma_pair.pair_chain.launches)
+
+
+def test_csbound_takes_a_precomputed_kmax():
+    """Given kmax (as the kernel is timed alone), csbound is the function it
+    is without it."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(70, seed=6))
+    kmax = flash64_variants.key_norm_max(k)
+    assert torch.equal(flash64_variants.flash64_fwd_csbound(q, k, v, kmax),
+                       flash64_variants.flash64_fwd_csbound(q, k, v))
 
 
 def test_augv_and_shipped_agree():

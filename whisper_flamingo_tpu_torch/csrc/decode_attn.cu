@@ -14,21 +14,36 @@
 //   - the softmax is fp32, the weights are rounded to the compute dtype,
 //     and the V sum is fp32; the output is head-merged (B, 1, D).
 //
-// Design for Hopper. One block per (head, row): each block writes only its
-// own d_head-wide slice of its row's new K/V, so no two blocks touch the
-// same bytes, and the block takes the new row's values from shared memory
-// instead of reading back what it wrote. It reads only the positions
-// <= offset (the TPU kernel streamed the whole T_max slab). The offsets
-// come from a device int32 tensor, so a step needs no host sync.
-//
 // What bounds it: it reads each cached K/V element of the prefix once and
 // does two flops per element, so it is bound by bytes; at the decode
 // shapes (8 to 120 rows, a prefix under 448 positions) the prefix is a
-// few MB and a launch is dominated by its latency, which is why the whole
-// chain (write, logits, softmax, V sum) is one launch, and why the loops
-// keep many loads in flight: the logits take one thread per position,
-// reading its K row in 16-byte pieces, and the V sum has each warp read
-// whole rows (2 lanes a thread) over an unrolled loop.
+// few MB, and at 8 rows a launch is bound by its latency: the chain of
+// dependent DRAM round trips inside it, not the bytes.
+//
+// Design for Hopper: one DRAM round trip. One block per (head, row), so
+// each block writes only its own d_head-wide slice of its row's new K/V.
+// The prefix (positions <= offset) is cut into chunks of K or V rows:
+// chunk 0 of K and of V each have a slot of their own, the later chunks
+// (K's, then V's) stream through a small ring, all by 16-byte cp.async,
+// the block's threads covering whole rows (one 16-byte piece each,
+// neighbouring threads on neighbouring bytes). Everything that fits is
+// issued at the start, so a short prefix costs one round trip, and a
+// longer one keeps the ring's chunks in flight while the block computes.
+// What does not depend on the offset (q, the new row) is read before it.
+// The offset comes by value for the lockstep decode loop, or from a device
+// int32 tensor (per-row offsets): a step needs no host sync either way.
+// The new row is not read back: it is written to the cache and kept in
+// shared memory from the new values.
+//   - logits: the lanes of a row each dot their piece with q's piece (q
+//     in registers) and sum across the row's lanes by shuffles;
+//   - max and sum: every warp reduces all the logits (at most t_max, from
+//     shared memory) by itself, so no combine is needed; the weights are
+//     normalised and rounded to the compute dtype before the V sum, as
+//     the contract asks, which is why the V sum waits for the whole
+//     softmax and V stays in shared memory meanwhile;
+//   - V sum: each thread sums its piece over its rows in fp32; the row
+//     groups of a warp combine by shuffles and the warps once through
+//     shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,8 +52,7 @@
 
 namespace {
 
-constexpr int NT = 128;  // threads per block
-constexpr int NW = NT / 32;
+constexpr int SMEM_DEFAULT = 48 * 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -61,30 +75,7 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Every thread returns the block-wide result; `red` is free again on return.
-__device__ __forceinline__ float block_max(float x, float* red) {
-  x = warp_max(x);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < NW; ++i) r = fmaxf(r, red[i]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float x, float* red) {
-  x = warp_sum(x);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < NW; ++i) r += red[i];
-  __syncthreads();
-  return r;
-}
-
-// 16 bytes of T from p (16-byte aligned) as fp32, and 2 elements of T.
+// 16 bytes of T at p (16-byte aligned, global or shared) as fp32.
 template <typename T> __device__ __forceinline__ void load16(const T* p, float* f);
 template <> __device__ __forceinline__ void load16<float>(const float* p, float* f) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -103,162 +94,315 @@ template <> __device__ __forceinline__ void load16<__nv_bfloat16>(const __nv_bfl
     f[2 * i + 1] = x.y;
   }
 }
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The work split for element type T at head width DH over NT threads: a
+// 16-byte piece holds E elements, a cache row L pieces (one lane each, L
+// divides 32), and a pass of the block covers G rows; a chunk of CHUNK
+// bytes holds P positions, PASSES passes.
+template <typename T, int DH, int NT, int CHUNK>
+struct Split {
+  static constexpr int E = 16 / sizeof(T);
+  static constexpr int L = DH / E;
+  static constexpr int G = NT / L;
+  static constexpr int P = CHUNK / (DH * (int)sizeof(T));
+  static constexpr int PASSES = P / G;
+  static_assert(L <= 32 && 32 % L == 0 && PASSES >= 1 && P % G == 0, "unsupported head width");
+};
+
+// The two modes, chosen by the host from the grid's size:
+//   - latency (few blocks, at most two per SM): 512 threads, so that the
+//     block's own arithmetic is spread over 16 warps (one pass of the
+//     rows per chunk), 8 KB chunks and a ring of 3; when the offsets are
+//     on the device, chunk 0 (positions 0..P-1, whatever the offset) is
+//     issued before the offset is read, so a prefix of up to P positions
+//     costs one round trip;
+//   - throughput (many blocks): 128 threads, 4 KB chunks, a ring of 2,
+//     about 19 KB of shared memory a block so that 11 blocks (and their
+//     loads) share each SM.
+// A scalar offset passed by value (the lockstep decode loop's) is known at
+// the start: every load is issued at once, with no byte past the offset.
+template <bool LATENCY>
+struct Mode {
+  static constexpr int NT = LATENCY ? 512 : 128;  // threads per block
+  static constexpr int NW = NT / 32;
+  static constexpr int CHUNK = LATENCY ? 8192 : 4096;
+  static constexpr int STAGES = LATENCY ? 3 : 2;
+  static constexpr int MIN_BLOCKS = LATENCY ? 1 : 11;
+};
+
+template <bool LATENCY>
+constexpr int smem_bytes(int t_max, int dh, int item) {
+  return (2 + Mode<LATENCY>::STAGES) * Mode<LATENCY>::CHUNK + 2 * dh * item +
+         4 * (Mode<LATENCY>::NW * dh + t_max);
 }
 
 // q/kn/vn/out: (B, 1, D); kc/vc: (B, t_max, D) contiguous, rows 16-byte
 // aligned (the wrapper checks). DH is the head width (32, 64 or 128).
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT) decode_attn_kernel(
-    const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn,
+template <typename T, int DH, bool LATENCY>
+__global__ void __launch_bounds__(Mode<LATENCY>::NT, Mode<LATENCY>::MIN_BLOCKS)
+    decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn,
     T* __restrict__ kc, T* __restrict__ vc, const int* __restrict__ offsets,
-    int off_stride, T* __restrict__ out, int t_max, int d, float scale) {
-  constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int TPR = DH / 2;        // V sum: threads per cache row, 2 lanes each
-  constexpr int G = NT / TPR;        // V sum: position groups
-  extern __shared__ float sm[];
-  float* w = sm;            // (t_max) logits, then weights
-  float* qs = w + t_max;    // (DH) q * scale, fp32
-  float* kns = qs + DH;     // (DH) new K row (scaled, cache dtype), as fp32
-  float* vns = kns + DH;    // (DH) new V row
-  float* part = vns + DH;   // (G * DH) partial V sums
-  __shared__ float red[NW];
+    int off_stride, int off_scalar, T* __restrict__ out, int t_max, int d, float scale) {
+  constexpr int NT = Mode<LATENCY>::NT, NW = Mode<LATENCY>::NW;
+  constexpr int CHUNK = Mode<LATENCY>::CHUNK, STAGES = Mode<LATENCY>::STAGES;
+  using S = Split<T, DH, NT, CHUNK>;
+  constexpr int E = S::E, L = S::L, G = S::G, P = S::P, PASSES = S::PASSES;
+  constexpr int CE = CHUNK / (int)sizeof(T);  // elements per chunk
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* head_k = reinterpret_cast<T*>(smem);  // chunk 0 of K, then of V
+  T* head_v = head_k + CE;
+  T* ring = head_v + CE;                   // chunks 1.. of K, then of V
+  T* new_k = ring + STAGES * CE;           // the new row's (DH)
+  T* new_v = new_k + DH;
+  float* part = reinterpret_cast<float*>(new_v + DH);  // (NW, DH) V sums
+  float* logit = part + NW * DH;                       // (t_max) logits, then weights
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int off = offsets[b * off_stride];
+  const int warp = tid / 32, lane = tid % 32;
+  const int li = tid % L;  // this thread's piece of a row
+  const int gi = tid / L;  // its row within a pass
   const int64_t tok = (int64_t)b * d + (int64_t)h * DH;
   const int64_t slab = (int64_t)b * t_max * d + (int64_t)h * DH;
+  const int64_t piece = li * E;
 
+  // Rows [0, rows) of chunk c of a cache into dst by 16-byte cp.async,
+  // the new row `skip` left out.
+  auto stage = [&](T* dst, const T* cache, int c, int rows, int skip) {
+    for (int r = gi; r < rows; r += G)
+      if (c * P + r != skip)
+        cp_async16(dst + r * DH + piece, cache + slab + (int64_t)(c * P + r) * d + piece);
+  };
+
+  // What does not depend on the offset is read first: q's piece (scaled
+  // in fp32), the new K (scaled in the source dtype, cast to the cache's)
+  // or V piece, and in latency mode with device offsets chunk 0 of K and V.
+  const bool speculate = LATENCY && offsets != nullptr;
+  float qf[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) qf[e] = to_f(q[tok + piece + e]) * scale;
+  alignas(16) T fresh[E];
+  if (tid < 2 * L) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      fresh[e] = tid < L ? from_f<T>(to_f(kn[tok + piece + e]) * scale) : vn[tok + piece + e];
+  }
+  if (speculate) {  // the row at the offset is read too, and never used
+    stage(head_k, kc, 0, min(P, t_max), -1);
+    stage(head_v, vc, 0, min(P, t_max), -1);
+    cp_async_commit();
+  }
+  const int off = offsets != nullptr ? offsets[b * off_stride] : off_scalar;
   if (off < 0 || off >= t_max) {  // no write; the row reads NaN downstream
+    cp_async_wait<0>();
     for (int c = tid; c < DH; c += NT) out[tok + c] = from_f<T>(NAN);
     return;
   }
-
-  for (int c = tid; c < DH; c += NT) {
-    qs[c] = to_f(q[tok + c]) * scale;
-    const T kv = from_f<T>(to_f(kn[tok + c]) * scale);
-    const T vv = vn[tok + c];
-    kns[c] = to_f(kv);
-    vns[c] = to_f(vv);
-    kc[slab + (int64_t)off * d + c] = kv;
-    vc[slab + (int64_t)off * d + c] = vv;
+  const int n = off + 1;           // positions 0..off
+  const int nc = (n + P - 1) / P;  // chunks of K (and as many of V)
+  const int nt = 2 * (nc - 1);     // ring tiles: chunks 1.. of K, then of V
+  if (tid < 2 * L) {  // the new row, to the cache and beside the chunks
+    T* cache = tid < L ? kc : vc;
+    *reinterpret_cast<uint4*>(cache + slab + (int64_t)off * d + piece) =
+        *reinterpret_cast<const uint4*>(fresh);
+    *reinterpret_cast<uint4*>((tid < L ? new_k : new_v) + piece) =
+        *reinterpret_cast<const uint4*>(fresh);
   }
-  __syncthreads();
-
-  // logits: one thread per cache position, its K row in 16-byte loads
-  for (int j = tid; j <= off; j += NT) {
-    float a = 0.f;
-    if (j == off) {
-#pragma unroll
-      for (int c = 0; c < DH; ++c) a += kns[c] * qs[c];
-    } else {
-      const T* kr = kc + slab + (int64_t)j * d;
-      float f[DH];
-#pragma unroll
-      for (int c0 = 0; c0 < DH; c0 += E) load16(kr + c0, f + c0);
-#pragma unroll
-      for (int c = 0; c < DH; ++c) a += f[c] * qs[c];
+  if (!speculate) {
+    stage(head_k, kc, 0, min(P, n), off);
+    stage(head_v, vc, 0, min(P, n), off);
+    cp_async_commit();
+  }
+  // Ring tile i into its slot, then a commit (an empty group past the last
+  // tile, so that a wait for tile i always has STAGES - 1 younger groups).
+  auto issue = [&](int i) {
+    if (i < nt) {
+      const bool is_v = i >= nc - 1;
+      const int c = (is_v ? i - (nc - 1) : i) + 1;
+      stage(ring + (i % STAGES) * CE, is_v ? vc : kc, c, min(P, n - c * P), off);
     }
-    w[j] = a;
-  }
-  __syncthreads();
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES; ++i) issue(i);
 
+  // logits of chunk c from its staged rows: the chunk's PASSES passes of
+  // G rows each, their loads and products first, then their shuffles
+  // across each row's lanes side by side (every lane takes part)
+  auto logits = [&](const T* rows_k, int c) {
+    const int rows = min(P, n - c * P);
+    float a[PASSES];
+#pragma unroll
+    for (int k = 0; k < PASSES; ++k) {
+      const int r = k * G + gi;
+      a[k] = 0.f;
+      if (r < rows) {
+        float kf[E];
+        load16((c * P + r == off ? new_k : rows_k + r * DH) + piece, kf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) a[k] = fmaf(kf[e], qf[e], a[k]);
+      }
+    }
+#pragma unroll
+    for (int s = 1; s < L; s <<= 1)
+#pragma unroll
+      for (int k = 0; k < PASSES; ++k) a[k] += __shfl_xor_sync(0xffffffffu, a[k], s);
+    if (li == 0) {
+#pragma unroll
+      for (int k = 0; k < PASSES; ++k)
+        if (k * G + gi < rows) logit[c * P + k * G + gi] = a[k];
+    }
+  };
+  float acc[E];  // this thread's piece of the V sum
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  auto v_sum = [&](const T* rows_v, int c) {
+    const int rows = min(P, n - c * P);
+#pragma unroll
+    for (int k = 0; k < PASSES; ++k) {
+      const int r = k * G + gi;
+      if (r < rows) {
+        const float w = logit[c * P + r];
+        float vf[E];
+        load16((c * P + r == off ? new_v : rows_v + r * DH) + piece, vf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = fmaf(w, vf[e], acc[e]);
+      }
+    }
+  };
+
+  cp_async_wait<STAGES>();  // chunk 0
+  __syncthreads();
+  logits(head_k, 0);
+  for (int i = 0; i < nc - 1; ++i) {
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    logits(ring + (i % STAGES) * CE, i + 1);
+    if (i + STAGES < nt) __syncthreads();  // the slot is refilled
+    issue(i + STAGES);
+  }
+  __syncthreads();  // every logit is in
+
+  // softmax: each warp reduces every logit (position `off` is there, so
+  // the max is finite); then the weights, rounded to the compute dtype,
+  // replace the logits
   float mx = -INFINITY;
-  for (int j = tid; j <= off; j += NT) mx = fmaxf(mx, w[j]);
-  mx = block_max(mx, red);  // position `off` is always there: mx is finite
+  for (int j = lane; j < n; j += 32) mx = fmaxf(mx, logit[j]);
+  mx = warp_max(mx);
   float sum = 0.f;
-  for (int j = tid; j <= off; j += NT) {
-    const float e = expf(w[j] - mx);
-    w[j] = e;
-    sum += e;
-  }
-  sum = block_sum(sum, red);
-  for (int j = tid; j <= off; j += NT) w[j] = to_f(from_f<T>(w[j] / sum));
+  for (int j = lane; j < n; j += 32) sum += expf(logit[j] - mx);
+  sum = warp_sum(sum);
+  __syncthreads();
+  for (int j = tid; j < n; j += NT) logit[j] = to_f(from_f<T>(expf(logit[j] - mx) / sum));
   __syncthreads();
 
-  // weighted V sum: TPR threads cover one row (2 lanes each, coalesced);
-  // the G groups split the positions; the new row comes from shared memory
-  const int g = tid / TPR, c = (tid % TPR) * 2;
-  float a0 = 0.f, a1 = 0.f;
-#pragma unroll 4
-  for (int j = g; j < off; j += G) {
-    const float2 v = load2(vc + slab + (int64_t)j * d + c);
-    a0 += w[j] * v.x;
-    a1 += w[j] * v.y;
+  // weighted V sum: thread (gi, li) sums piece li of rows gi, gi + G, ...
+  v_sum(head_v, 0);
+  for (int i = nc - 1; i < nt; ++i) {
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    v_sum(ring + (i % STAGES) * CE, i - (nc - 1) + 1);
+    if (i + STAGES < nt) __syncthreads();
+    issue(i + STAGES);
   }
-  if (g == off % G) {
-    a0 += w[off] * vns[c];
-    a1 += w[off] * vns[c + 1];
+#pragma unroll
+  for (int s = L; s < 32; s <<= 1)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], s);
+  if (lane < L) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) part[warp * DH + piece + e] = acc[e];
   }
-  part[g * DH + c] = a0;
-  part[g * DH + c + 1] = a1;
   __syncthreads();
-  if (tid < DH) {
+  for (int c = tid; c < DH; c += NT) {
     float tot = 0.f;
 #pragma unroll
-    for (int gg = 0; gg < G; ++gg) tot += part[gg * DH + tid];
-    out[tok + tid] = from_f<T>(tot);
+    for (int w = 0; w < NW; ++w) tot += part[w * DH + c];
+    out[tok + c] = from_f<T>(tot);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* kn, const void* vn, void* kc, void* vc, const int* off,
-           int off_stride, void* out, int batch, int t_max, int d, int n_head, float scale,
-           size_t smem, cudaStream_t s) {
-  const dim3 grid(n_head, batch);
-  const T* q_ = static_cast<const T*>(q);
-  const T* kn_ = static_cast<const T*>(kn);
-  const T* vn_ = static_cast<const T*>(vn);
-  T* kc_ = static_cast<T*>(kc);
-  T* vc_ = static_cast<T*>(vc);
-  T* out_ = static_cast<T*>(out);
-  switch (d / n_head) {
+// The launch arguments shared by every instantiation.
+struct Args {
+  const void *q, *kn, *vn;
+  void *kc, *vc;
+  const int* offsets;
+  int off_stride, off_scalar;
+  void* out;
+  int batch, t_max, d;
+  float scale;
+};
+
+template <typename T, int DH, bool LATENCY>
+int launch_dh(const Args& a, cudaStream_t s) {
+  const int smem = smem_bytes<LATENCY>(a.t_max, DH, (int)sizeof(T));
+  auto kernel = decode_attn_kernel<T, DH, LATENCY>;
+  if (smem > SMEM_DEFAULT)  // long caches only (t_max above ~600)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<dim3(a.d / DH, a.batch), Mode<LATENCY>::NT, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kn), static_cast<const T*>(a.vn),
+      static_cast<T*>(a.kc), static_cast<T*>(a.vc), a.offsets, a.off_stride, a.off_scalar,
+      static_cast<T*>(a.out), a.t_max, a.d, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool LATENCY>
+int launch(const Args& a, int n_head, cudaStream_t s) {
+  switch (a.d / n_head) {
     case 32:
-      decode_attn_kernel<T, 32><<<grid, NT, smem, s>>>(q_, kn_, vn_, kc_, vc_, off, off_stride,
-                                                       out_, t_max, d, scale);
-      break;
+      return launch_dh<T, 32, LATENCY>(a, s);
     case 64:
-      decode_attn_kernel<T, 64><<<grid, NT, smem, s>>>(q_, kn_, vn_, kc_, vc_, off, off_stride,
-                                                       out_, t_max, d, scale);
-      break;
+      return launch_dh<T, 64, LATENCY>(a, s);
     case 128:
-      decode_attn_kernel<T, 128><<<grid, NT, smem, s>>>(q_, kn_, vn_, kc_, vc_, off, off_stride,
-                                                        out_, t_max, d, scale);
-      break;
+      return launch_dh<T, 128, LATENCY>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory the kernel needs, in bytes: logits, q, the new
-// K/V row, and the V sum's partials (2 * NT floats for every head width).
-extern "C" int wf_decode_attn_smem_bytes(int t_max, int dh) {
-  return static_cast<int>((t_max + 3 * dh + 2 * NT) * sizeof(float));
+// Dynamic shared memory of one launch, in bytes: chunk 0 of K and V, the
+// ring, the new row, the V sum's per-warp partials and the logits. The
+// wrapper computes the same in Python (ops/decode_attn.py smem_bytes); the
+// card tests hold the two equal.
+extern "C" int wf_decode_attn_smem_bytes(int t_max, int dh, int item, int latency) {
+  return latency ? smem_bytes<true>(t_max, dh, item) : smem_bytes<false>(t_max, dh, item);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. `offsets` is a device int32 array read
-// at b * off_stride (off_stride 0: one scalar offset for every row).
-// d_head = d / n_head must be 32, 64 or 128. Returns the launch's
+// at b * off_stride (off_stride 0: one offset for every row), or null: then
+// every row's offset is `off_scalar`. d_head = d / n_head must be 32, 64
+// or 128. latency: 1 for the latency mode (a grid of at most two blocks
+// per SM), 0 for the throughput mode. Returns the launch's
 // cudaGetLastError() (0 when the kernel was accepted).
 extern "C" int wf_decode_attn_step(const void* q, const void* kn, const void* vn, void* kc,
-                                   void* vc, const void* offsets, int off_stride, void* out,
-                                   int batch, int t_max, int d, int n_head, float scale,
-                                   int dtype, void* stream) {
-  const size_t smem = static_cast<size_t>(wf_decode_attn_smem_bytes(t_max, d / n_head));
+                                   void* vc, const void* offsets, int off_stride,
+                                   int off_scalar, void* out, int batch, int t_max, int d,
+                                   int n_head, float scale, int dtype, int latency,
+                                   void* stream) {
+  const Args a{q,          kn,  vn,    kc, vc, static_cast<const int*>(offsets), off_stride,
+               off_scalar, out, batch, t_max, d, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* off = static_cast<const int*>(offsets);
   if (dtype == 0)
-    return launch<float>(q, kn, vn, kc, vc, off, off_stride, out, batch, t_max, d, n_head,
-                         scale, smem, s);
+    return latency ? launch<float, true>(a, n_head, s) : launch<float, false>(a, n_head, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kn, vn, kc, vc, off, off_stride, out, batch, t_max, d,
-                                 n_head, scale, smem, s);
+    return latency ? launch<__nv_bfloat16, true>(a, n_head, s)
+                   : launch<__nv_bfloat16, false>(a, n_head, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

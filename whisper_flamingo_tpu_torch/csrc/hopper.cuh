@@ -1,11 +1,12 @@
 // Hopper (sm_90a) primitives for the port's tensor-core kernels, in inline
 // PTX: TMA tile loads into shared memory under mbarriers, wgmma products in
-// the SS and RS forms with the 128-byte-swizzle shared-memory descriptor,
+// the SS and RS forms with the 128-byte-swizzle shared-memory descriptor
+// (and an RS m64n8 form on an unswizzled B),
 // the async-proxy fence and setmaxnreg; and, on the host, the encoding of
 // the tensor maps that the TMA loads read (through the runtime's driver
 // entry point, so a library built on this header links no libcuda).
 //
-// Conventions the kernels rely on (csrc/flash64_fwd.cu, csrc/flash64_bwd.cu):
+// Conventions the kernels rely on (csrc/flash64_fwd_frame.cuh, csrc/flash64_bwd.cu):
 //   - Every tile is rows of 64 bf16 (128 bytes) written by TMA with
 //     CU_TENSOR_MAP_SWIZZLE_128B into shared memory aligned to 1024 bytes:
 //     row r at byte r * 128, its 16-byte chunk c at chunk c ^ (r % 8).
@@ -24,6 +25,9 @@
 //     column 8j + 2q + c. The RS form's A registers are m16n8k16's A
 //     fragment of rows 16w..16w+15: a0 (g, 2q..), a1 (g + 8, 2q..),
 //     a2 (g, 2q + 8..), a3 (g + 8, 2q + 8..), two bf16 each.
+//   - The row-sum product of the forward variants (csrc/flash64_fwd_frame.cuh)
+//     reads a 16 x 8 B without swizzle (desc_plain): core matrix (k 0-7) at
+//     byte 0, (k 8-15) at LBO = 128, row n of each at n * 16.
 // tests/test_torch_cuda.py holds each form against torch.matmul through
 // csrc/wgmma_check.cu.
 
@@ -175,6 +179,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint
          (1ull << 62);
 }
 
+// Shared-memory matrix descriptor without swizzle (layout type 0): the
+// operand is 8 x 16-byte core matrices of 128 contiguous bytes; for a
+// K-major operand LBO is the byte step between the two core matrices of a
+// k16 slice (along K) and SBO the step between 8-row groups (along M or N).
+__device__ __forceinline__ uint64_t desc_plain(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
 // A K-major operand (rows of 64 along the contraction); the k-th 16-wide
 // slice is desc + 2 * k (32 bytes).
 __device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
@@ -275,6 +288,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// D(64x8, fp32) (+)= A(64x16, bf16, registers) B(16x8, bf16, shared, K-major
+// without swizzle, desc_plain): the
+// forward variants' row-sum product against an all-ones B.
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@
 // as the kernels do, issues `ksteps` k16 products and writes the fp32
 // accumulator out through the layout csrc/hopper.cuh states. It checks the
 // descriptors (K-major and MN-major), the k-slice advances, the RS form's
-// A-fragment layout and the accumulator layout; it is on no system path.
+// A-fragment layout and the accumulator layout; and the m64n8 RS form of
+// the forward variants' row-sum product, its B copied by the threads into
+// the unswizzled core-matrix layout that desc_plain describes. It is on no
+// system path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -18,11 +21,13 @@ using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 // form 0: SS, B K-major; 1: RS, B K-major; 2: RS, B MN-major; 3: SS, B
-// MN-major. a is (64, 64) [m][k]; b is (n, 64) [n][k] for K-major and
-// (64, 64) [k][n] for MN-major; d is (64, n) fp32.
+// MN-major; 4: RS, n 8, B K-major without swizzle. a is (64, 64) [m][k]; b
+// is (n, 64) [n][k] for K-major and (64, 64) [k][n] for MN-major; d is
+// (64, n) fp32.
 __global__ void __launch_bounds__(128) wgmma_check_kernel(const __grid_constant__ CUtensorMap amap,
                                                           const __grid_constant__ CUtensorMap bmap,
                                                           const bf16* __restrict__ a,
+                                                          const bf16* __restrict__ b,
                                                           float* __restrict__ d, int n, int form,
                                                           int ksteps, int b_bytes) {
   extern __shared__ uint8_t smem_raw[];
@@ -35,10 +40,20 @@ __global__ void __launch_bounds__(128) wgmma_check_kernel(const __grid_constant_
     fence_barrier_init();
   }
   __syncthreads();
+  if (form == 4) {
+    // element (n, k) at k-slice k / 16 (256 bytes each), core matrix
+    // (k % 16) / 8 (LBO 128 bytes), row n (16 bytes), column k % 8
+    for (int i = threadIdx.x; i < 8 * 64; i += 128) {
+      const int nn = i / 64, k = i % 64;
+      bs[(k / 16) * 128 + ((k % 16) / 8) * 64 + nn * 8 + k % 8] = b[i];
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
     mbar_arrive_expect_tx(&bar, 64 * 64 * 2 + b_bytes);
     tma_load_4d(as, &amap, &bar, 0, 0, 0, 0);
-    tma_load_4d(bs, &bmap, &bar, 0, 0, 0, 0);
+    if (b_bytes) tma_load_4d(bs, &bmap, &bar, 0, 0, 0, 0);
   }
   mbar_wait(&bar, 0);
 
@@ -54,13 +69,15 @@ __global__ void __launch_bounds__(128) wgmma_check_kernel(const __grid_constant_
     af[kk][2] = *reinterpret_cast<const uint32_t*>(a + r0 * 64 + c + 8);
     af[kk][3] = *reinterpret_cast<const uint32_t*>(a + (r0 + 8) * 64 + c + 8);
   }
-  float acc64[32], acc128[64];
+  float acc64[32], acc128[64], acc8[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc64[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc128[i] = 0.f;
 
   const uint64_t ad = desc_k_major(as), bk = desc_k_major(bs), bm = desc_mn_major(bs);
+  const uint64_t bp = desc_plain(bs, 128, 256);
+  fence_regs(acc8);
   fence_regs(acc64);
   fence_regs(acc128);
   fence_regs(af);
@@ -74,12 +91,15 @@ __global__ void __launch_bounds__(128) wgmma_check_kernel(const __grid_constant_
       wgmma_rs_n64<0>(acc64, af[kk], bk + 2 * kk, 1);
     } else if (form == 2) {
       wgmma_rs_n64<1>(acc64, af[kk], bm + 128 * kk, 1);
+    } else if (form == 4) {
+      wgmma_rs_n8(acc8, af[kk], bp + 16 * kk, 1);
     } else {
       wgmma_ss_n64<1>(acc64, ad + 2 * kk, bm + 128 * kk, 1);
     }
   }
   wgmma_commit();
   wgmma_wait<0>();
+  fence_regs(acc8);
   fence_regs(acc64);
   fence_regs(acc128);
   fence_regs(af);
@@ -92,7 +112,9 @@ __global__ void __launch_bounds__(128) wgmma_check_kernel(const __grid_constant_
       for (int c = 0; c < 2; ++c) {
         const int col = 8 * j + 2 * tq + c;
         if (col >= n) continue;
-        const float x = n == 128 ? acc128[4 * j + 2 * r + c] : acc64[(4 * j + 2 * r + c) % 32];
+        const float x = n == 128 ? acc128[4 * j + 2 * r + c]
+                        : n == 8  ? acc8[2 * r + c]
+                                  : acc64[(4 * j + 2 * r + c) % 32];
         d[(r0 + 8 * r) * n + col] = x;
       }
 }
@@ -100,14 +122,15 @@ __global__ void __launch_bounds__(128) wgmma_check_kernel(const __grid_constant_
 }  // namespace
 
 // a, b, d contiguous on the card (see the kernel); n 64 or 128 (128 only
-// with form 0, MN-major forms only at 64); ksteps 1..4. Returns the launch's
+// with form 0, MN-major forms only at 64), 8 with form 4 only; ksteps
+// 1..4. Returns the launch's
 // cudaGetLastError(), cudaErrorInvalidValue for arguments it does not take,
 // or hopper::kEncodeError + the CUresult.
 extern "C" int wf_wgmma_check(const void* a, const void* b, float* d, int n, int form,
                               int ksteps, void* stream) {
   const bool mn_major = form == 2 || form == 3;
-  if ((n != 64 && n != 128) || form < 0 || form > 3 || ksteps < 1 || ksteps > 4 ||
-      (n == 128 && form != 0))
+  if ((n != 8 && n != 64 && n != 128) || form < 0 || form > 4 || ksteps < 1 || ksteps > 4 ||
+      (n == 128 && form != 0) || ((n == 8) != (form == 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int b_rows = mn_major ? 64 : n;
   CUtensorMap am, bm;
@@ -117,6 +140,7 @@ extern "C" int wf_wgmma_check(const void* a, const void* b, float* d, int n, int
   const int smem = 1024 + 64 * 64 * 2 + 128 * 64 * 2;
   cudaFuncSetAttribute(wgmma_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   wgmma_check_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
-      am, bm, static_cast<const bf16*>(a), d, n, form, ksteps, b_rows * 64 * 2);
+      am, bm, static_cast<const bf16*>(a), static_cast<const bf16*>(b), d, n, form, ksteps,
+      form == 4 ? 0 : b_rows * 64 * 2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -637,10 +637,7 @@ def decoder_apply(
         scale = (dims.n_text_state // n_head) ** -0.25
         have_xt_kv = use_gated and "xt_k" in cache
         quantized_self = "k_s" in cache
-        use_kernel = T == 1 and not quantized_self
-        if use_kernel and isinstance(offset, int):
-            # one device offset shared by every layer's kernel call
-            offset = torch.full((1,), offset, dtype=torch.int32, device=dev)
+        use_kernel = T == 1 and not quantized_self  # an int offset goes to it by value
         mask = None if use_kernel else cached_causal_mask(
             T, cache["k"].shape[-2], offset, device=dev
         )

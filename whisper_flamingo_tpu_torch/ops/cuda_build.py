@@ -106,9 +106,12 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s device, as a pointer argument."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device (a CUDA tensor), as the
+    integer a pointer argument takes: the raw handle straight from the
+    CUDA build's C module, without the Python ``Stream`` object that
+    ``torch.cuda.current_stream`` builds on every call."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

@@ -19,9 +19,10 @@ lockstep kernel (a scalar offset is the same kernel with offset stride 0),
 and the 8-row aligned write window (the kernel writes just the new row).
 See ``csrc/decode_attn.cu`` for the design and what bounds it.
 
-``offset`` is a Python int, or a device int32 tensor of shape (), (1,)
-(one offset for every row: lockstep) or (B,) (one per row). The kernel
-reads it on the device: a step needs no host sync.
+``offset`` is a Python int (the lockstep decode loop's: passed to the
+kernel by value), or a device int32 tensor of shape (), (1,) (one offset
+for every row) or (B,) (one per row), which the kernel reads on the
+device: a step needs no host sync either way.
 """
 
 from __future__ import annotations
@@ -32,8 +33,6 @@ from typing import Tuple, Union
 import torch
 
 from . import cuda_build
-
-_SMEM_LIMIT = 48 * 1024
 
 Offset = Union[int, torch.Tensor]
 
@@ -69,17 +68,37 @@ def fused_step_plain(
     return out.to(q.dtype)
 
 
-def _lib():
-    lib = cuda_build.load("decode_attn")
-    fn = lib.wf_decode_attn_step
+# The kernel's two modes (csrc/decode_attn.cu): with at most two blocks (one
+# per (row, head)) per SM the launch is latency-bound and takes 512 threads,
+# 8 KB chunks and a ring of 3; with more, 128 threads, 4 KB chunks and a
+# ring of 2, so that 11 blocks share an SM. A block may use 227 KB of
+# shared memory on an H100.
+SMEM_LIMIT = 232448
+_sm_count = {}  # device index -> SMs (a fact of the card, read once)
+
+
+def latency_mode(blocks: int, sm_count: int) -> bool:
+    """True when the grid has at most two blocks per SM."""
+    return blocks <= 2 * sm_count
+
+
+def smem_bytes(t_max: int, d_head: int, item: int, latency: bool) -> int:
+    """Dynamic shared memory of one launch, in bytes (the C side's
+    ``wf_decode_attn_smem_bytes``): chunk 0 of K and V and the ring, the
+    new K/V row, the V sum's partials (one per warp: 16 or 4) and the t_max
+    logits."""
+    chunk, stages, warps = (8192, 3, 16) if latency else (4096, 2, 4)
+    return (2 + stages) * chunk + 2 * d_head * item + 4 * (warps * d_head + t_max)
+
+
+def _kernel():
+    fn = cuda_build.load("decode_attn").wf_decode_attn_step
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [
             ctypes.c_int
-        ] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        lib.wf_decode_attn_smem_bytes.restype = ctypes.c_int
-        lib.wf_decode_attn_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    return lib
+        ] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
 
 
 def fused_step(
@@ -93,51 +112,59 @@ def fused_step(
     K pre-scaled. Returns ``(attn_out (B, 1, D), k_cache, v_cache)``, the
     caches being the same tensors, updated in place.
     """
-    if q.device.type == "cpu":
+    kind = q.device.type
+    if kind == "cpu":
         out = fused_step_plain(q, k_raw, v_raw, k_cache, v_cache, offset, n_head)
         return out, k_cache, v_cache
-    if q.device.type != "cuda":
+    if kind != "cuda":
         raise RuntimeError(f"fused_step: no kernel for device {q.device}")
     b, t_max, d = k_cache.shape
     dh = d // n_head
-    tensors = (q, k_raw, v_raw, k_cache, v_cache)
+    dtype, where = q.dtype, q.get_device()
     if q.shape != (b, 1, d) or k_raw.shape != q.shape or v_raw.shape != q.shape:
         raise ValueError("fused_step: q/k/v must be (B, 1, D) for a (B, T, D) cache")
     if v_cache.shape != k_cache.shape or d % n_head:
         raise ValueError("fused_step: bad cache or head shapes")
-    if len({t.dtype for t in tensors}) != 1:
+    if not (k_raw.dtype == v_raw.dtype == k_cache.dtype == v_cache.dtype == dtype):
         raise TypeError("fused_step: q, k, v and the caches must have one dtype")
-    if any(t.device != q.device for t in tensors):
+    if not (k_raw.get_device() == v_raw.get_device() == k_cache.get_device()
+            == v_cache.get_device() == where):
         raise ValueError("fused_step: all tensors must be on one device")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (q.is_contiguous() and k_raw.is_contiguous() and v_raw.is_contiguous()
+            and k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("fused_step: q, k, v and the caches must be contiguous")
     if dh not in (32, 64, 128):
         raise ValueError(f"fused_step: d_head {dh} is not 32, 64 or 128")
-    if (d * k_cache.element_size()) % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+    kp, vp = k_cache.data_ptr(), v_cache.data_ptr()
+    if (d * k_cache.element_size()) % 16 or kp % 16 or vp % 16:
         raise ValueError("fused_step: cache rows must be 16-byte aligned")
     if b > 65535:
         raise ValueError("fused_step: more than 65535 rows")
-    code = cuda_build.dtype_code(q.dtype, "fused_step")
-    if isinstance(offset, int):
+    sms = _sm_count.get(where)
+    if sms is None:
+        sms = _sm_count[where] = torch.cuda.get_device_properties(where).multi_processor_count
+    latency = latency_mode(b * n_head, sms)
+    if smem_bytes(t_max, dh, k_cache.element_size(), latency) > SMEM_LIMIT:
+        raise ValueError(f"fused_step: cache length {t_max} needs too much shared memory")
+    code = cuda_build.dtype_code(dtype, "fused_step")
+    if isinstance(offset, int):  # by value: no device read
         if not 0 <= offset < t_max:
             raise ValueError(f"fused_step: offset {offset} outside [0, {t_max})")
-        offsets = torch.full((1,), offset, dtype=torch.int32, device=q.device)
+        off_ptr, off_stride, off_scalar = None, 0, offset
     else:
-        offsets = offset.reshape(-1)
+        offsets = offset if offset.dim() == 1 else offset.reshape(-1)
         if offsets.dtype != torch.int32:
             offsets = offsets.to(torch.int32)
-        if offsets.device != q.device or offsets.numel() not in (1, b):
+        n_off = offsets.numel()
+        if offsets.get_device() != where or n_off not in (1, b):
             raise ValueError("fused_step: offsets must be 1 or B values on q's device")
         offsets = offsets.contiguous()
-    lib = _lib()
-    if lib.wf_decode_attn_smem_bytes(t_max, dh) > _SMEM_LIMIT:
-        raise ValueError(f"fused_step: cache length {t_max} needs too much shared memory")
+        off_ptr, off_stride, off_scalar = offsets.data_ptr(), 0 if n_off == 1 else 1, 0
     out = torch.empty_like(q)
-    err = lib.wf_decode_attn_step(
-        q.data_ptr(), k_raw.data_ptr(), v_raw.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), offsets.data_ptr(),
-        0 if offsets.numel() == 1 else 1, out.data_ptr(),
-        b, t_max, d, n_head, dh ** -0.25, code, cuda_build.stream_ptr(q),
+    err = _kernel()(
+        q.data_ptr(), k_raw.data_ptr(), v_raw.data_ptr(), kp, vp, off_ptr, off_stride,
+        off_scalar, out.data_ptr(),
+        b, t_max, d, n_head, dh ** -0.25, code, latency, cuda_build.stream_ptr(q),
     )
     cuda_build.check(err, "fused_step")
     fused_step.launches += 1

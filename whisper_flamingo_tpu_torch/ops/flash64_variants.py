@@ -29,12 +29,16 @@ through (the card is timed with CUDA events).
 
 The wrappers run the plain versions for CPU tensors and the kernels of
 ``csrc/flash64_fwd_probe.cu`` (bf16 only) for CUDA tensors; on a CUDA
-tensor they launch the kernel or raise.
+tensor they launch the kernel or raise. The kernels run the shipped
+forward's frame (``csrc/flash64_fwd_frame.cuh``) with their own softmax,
+so a timing against :func:`.flash64.flash64_forward` measures the
+softmax alone; csbound's call also runs :func:`key_norm_max` first.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -50,8 +54,10 @@ _VARIANT = {"augv": 0, "csbound": 1}
 # ---------------------------------------------------------------------------
 
 def key_norm_max(k: torch.Tensor) -> torch.Tensor:
-    """max_j |k_j|_2 in fp32 over the key rows: (..., T, 64) -> (...)."""
-    return k.float().pow(2).sum(dim=-1).sqrt().amax(dim=-1)
+    """max_j |k_j|_2 in fp32 over the key rows: (..., T, 64) -> (...). One
+    reduction that reads K once, casting inside (no fp32 copy of K), then
+    the max over the (..., T) norms."""
+    return torch.linalg.vector_norm(k, dim=-1, dtype=torch.float32).amax(dim=-1)
 
 
 def _augmented_product(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -71,10 +77,14 @@ def flash64_fwd_augv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     return _augmented_product(e.to(v.dtype).float(), v)
 
 
-def flash64_fwd_csbound_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash64_fwd_csbound_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              kmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``fwd_csbound_augv`` in plain PyTorch: exp(s - |q_i| * kmax) with no
-    row max, and the row sum from the ones-augmented V product."""
-    bound = q.float().pow(2).sum(dim=-1, keepdim=True).sqrt() * key_norm_max(k)[..., None, None]
+    row max, and the row sum from the ones-augmented V product; ``kmax``
+    is :func:`key_norm_max` of k unless given."""
+    if kmax is None:
+        kmax = key_norm_max(k)
+    bound = q.float().pow(2).sum(dim=-1, keepdim=True).sqrt() * kmax[..., None, None]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     e = torch.exp(s - bound)
     return _augmented_product(e.to(v.dtype).float(), v)
@@ -92,7 +102,8 @@ def _lib():
     return fn
 
 
-def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     what = f"flash64_fwd_{variant}"
     if q.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {q.device}")
@@ -110,7 +121,10 @@ def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     heads = q.numel() // (t * D_HEAD)
     if heads > 65535:
         raise ValueError(f"{what}: more than 65535 (batch, head) pairs")
-    kmax = key_norm_max(k).contiguous() if variant == "csbound" else None
+    if variant == "csbound":
+        kmax = (key_norm_max(k) if kmax is None else kmax).float().contiguous()
+        if kmax.numel() != heads or kmax.device != q.device:
+            raise ValueError(f"{what}: kmax must hold one value per (batch, head)")
     out = torch.empty_like(q)
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -134,13 +148,16 @@ def flash64_fwd_augv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
 flash64_fwd_augv.launches = 0
 
 
-def flash64_fwd_csbound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash64_fwd_csbound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., T, 64) pre-scaled q/k/v -> the attention output with the
     Cauchy-Schwarz bound in place of the row max (rows may come out
-    non-finite where the bound is ~87 above every score, as in JAX)."""
+    non-finite where the bound is ~87 above every score, as in JAX).
+    ``kmax`` ((...) fp32, :func:`key_norm_max` of k) is computed here
+    unless given, as when the kernel is timed alone."""
     if q.device.type == "cpu":
-        return flash64_fwd_csbound_plain(q, k, v)
-    out = _launch("csbound", q, k, v)
+        return flash64_fwd_csbound_plain(q, k, v, kmax)
+    out = _launch("csbound", q, k, v, kmax)
     flash64_fwd_csbound.launches += 1
     return out
 

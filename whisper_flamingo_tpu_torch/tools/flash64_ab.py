@@ -21,6 +21,9 @@ to the plain versions at bf16 (8, 12, 1500, 64) (the tolerances of
   "full", on the train bench protocol of ``chip_smoke.py`` phase 8 (the
   median of ``--steps`` steps after two of warm-up).
 
+Before the timings it prints whether the two sides give the same bits on
+the same inputs (forward, lse forward, lse, dQ, dK, dV).
+
 It prints the card's name and power limit, then one JSON line per
 measurement. It needs a card.
 """
@@ -147,9 +150,17 @@ def main(argv=None) -> int:
             for _ in range(2))
     v, do = (torch.randn(b, h, t, 64, generator=gen, device="cuda").bfloat16() for _ in range(2))
     try:
+        outs = {}
         for side in ("other", "this"):
             sides.use(side)
             print(json.dumps({"check": side, "max_abs_err": check(q, k, v, do)}), flush=True)
+            o, lse = flash64.flash64_forward(q, k, v, with_lse=True)
+            outs[side] = (flash64.flash64_forward(q, k, v), o, lse,
+                          *flash64.flash64_backward(q, k, v, o, lse, do))
+        same = {name: torch.equal(a, b) for name, a, b in
+                zip(("fwd", "fwd_lse_o", "lse", "dq", "dk", "dv"), outs["other"], outs["this"])}
+        print(json.dumps({"same_bits_as_other": same}), flush=True)
+        sides.use("this")
         o, lse = flash64.flash64_forward(q, k, v, with_lse=True)
         calls = {
             "fwd": lambda: flash64.flash64_forward(q, k, v),
