@@ -39,10 +39,13 @@ each printing one JSON line:
 
 5. dtw: the DTW wavefront kernel against its plain version, traces
    bit-equal, at (65, 1500) and (224, 1500) fp32 N(0, 1), the tie-rich
-   integer (33, 70), (1, 1500) and (448, 1500); the path equals the host
-   DP (``dtw_np``) at (65, 1500). Its time beside the byte bound, the
-   chain of N+M dependent diagonals and the plain version's time (no
-   PyTorch call computes this DP).
+   integer (33, 70), (1, 1500), (448, 1500) and the edges of a warp's 32
+   rows and of the ring between warps, N in 31, 32, 33, 63, 64, 447; the
+   path equals the host DP (``dtw_np``) at (65, 1500). Its time beside the
+   byte bound and beside the chain floor: a one-warp microkernel's ns per
+   dependent step (the shuffle, the cascade, the add) times the N+M
+   diagonals; ns per diagonal, host time per call, the plain version's
+   time (no PyTorch call computes this DP).
 6. longform: the port's ``transcribe`` on ``load_model("small")`` in bf16
    over 90 s of the bench's synthetic audio, English, greedy at
    temperature 0, 64 tokens per window with EOT suppressed, word
@@ -79,12 +82,19 @@ each printing one JSON line:
     run (train losses to 1e-6 relative); the metrics JSONL, top-k pruning
     and ``last`` are present. The flash64 counters are read around the
     first run, the training path's main run.
-11. decode_mlp: the streaming decode-MLP kernel (``csrc/decode_mlp.cu``)
-    against its plain version at d 768, f 3072 and 8, 32 and 120 rows, in
-    bf16, fp32 and int8 weights with bf16 x; two launches give the same
-    bits. Times beside the byte bound, the plain version's, and the
-    unfused ``mlp_block`` chain's (the yardstick; not called on this
-    route).
+11. decode_mlp: the decode-MLP kernel (``csrc/decode_mlp.cu``) against
+    its plain version at d 768, f 3072 and 8, 32 and 120 rows, in bf16,
+    fp32 and int8 weights with bf16 x; two launches give the same bits.
+    Device time per call between CUDA events, the host ahead of the device
+    (``profiling.device_span_ms``), with L2 flushed by a 64 MB read before
+    each call (the kernels line's ``ms``) and warm; beside it the byte
+    bound, the host time per call, the plain version's time, and the
+    unfused ``mlp_block`` chain's device time by the same measure (its
+    kernels and the gaps between them, the int8 casts included), flushed
+    and warm, and host time: the route with
+    ``ENABLED`` off, never called on the kernel's route. No single PyTorch
+    call computes the function, so ``library_ms`` is null; the host-paced
+    back-to-back times of both are kept as ``back_to_back_ms``.
 12. serving_int8: ``small`` b8 on the bench protocol: greedy int8 with
     ``decode_mlp.ENABLED`` off and on, beam 15 int8kv, the Whisper-Flamingo
     beam 15 int8kv; RTF and tokens/s, with the launch counters at 0 before
@@ -364,8 +374,12 @@ def phase_dtw(torch, dtw):
 
     rng = np.random.default_rng(0)
     rows, timed = [], {}
-    for shape, ints in (((65, 1500), False), ((224, 1500), False), ((33, 70), True),
-                        ((1, 1500), False), ((448, 1500), False)):
+    floor_ns = dtw.chain_floor_ns()  # one dependent step of the wavefront alone
+    # the bench shapes, tie-rich integers, one row, and the edges of a warp's
+    # 32 rows and of the ring between warps
+    cases = [((65, 1500), False), ((224, 1500), False), ((33, 70), True), ((1, 1500), False),
+             ((448, 1500), False)] + [((n, 1500), False) for n in (31, 32, 33, 63, 64, 447)]
+    for shape, ints in cases:
         x = rng.integers(0, 2, shape) if ints else rng.standard_normal(shape)
         x = torch.from_numpy(x.astype(np.float32)).cuda()
         trace = dtw.dtw_trace(x)
@@ -380,13 +394,18 @@ def phase_dtw(torch, dtw):
             if not np.array_equal(path, dtw.dtw_np(x.cpu().numpy())):
                 raise AssertionError("dtw (65, 1500): the path differs from dtw_np's")
             row["path_equals_dtw_np"] = True
-        if shape in ((65, 1500), (224, 1500)):
+        if shape in ((65, 1500), (224, 1500)) and not ints:
             n, m = shape
             row["ms"] = time_ms(lambda: dtw.dtw_trace(x), 50)
             row["plain_ms"] = time_ms(lambda: dtw.dtw_trace_plain(x), 2, 1)
             row["bound_ms"], row["bound_by"] = bound(0.0, 4.0 * n * m + (n + 1) * (m + 1),
                                                      "float32")
+            # the chain of N + M dependent diagonals at the measured step
             row["chain_steps"] = n + m
+            row["chain_floor_ns_per_step"] = floor_ns
+            row["chain_floor_ms"] = (n + m) * floor_ns * 1e-6
+            row["ns_per_step"] = row["ms"] * 1e6 / (n + m)
+            row["host_ms"] = host_ms(torch, lambda: dtw.dtw_trace(x), 50)
             row["library_ms"] = None  # no PyTorch call computes this DP
             timed[shape] = row
         rows.append(row)
@@ -779,12 +798,12 @@ def phase_recipe(torch, flash64):
 
 def phase_decode_mlp(torch, decode_mlp, gen):
     """The decode-MLP kernel against its plain version at small's widths."""
-    from torch.profiler import ProfilerActivity, profile
-
     from whisper_flamingo_tpu_torch.models.whisper import _quantize_linear, mlp_block
+    from whisper_flamingo_tpu_torch.profiling import device_span_ms
 
     d, f = D_MODEL, 4 * D_MODEL
     rows_out, timed = [], {}
+    flush = torch.zeros(32 << 20, dtype=torch.bfloat16, device="cuda")  # 64 MB > the L2
     for dtype_name, int8, tol in (("bfloat16", False, 1e-2), ("float32", False, 1e-5),
                                   ("bfloat16", True, 1e-2)):
         dtype = getattr(torch, dtype_name)
@@ -814,20 +833,26 @@ def phase_decode_mlp(torch, decode_mlp, gen):
                    "same_bits_twice": same}
             if not (torch.isfinite(out).all().item() and err <= tol * scale and same):
                 raise AssertionError(f"decode_mlp: {row}")
-            row["ms"] = time_ms(lambda: decode_mlp._launch(x, w1, b1, w2, b2, s1, s2), 200, 10)
-            # back to back, the wrapper's host work can set the pace: the
-            # device time of the two passes, from the profiler
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
-                torch.cuda.synchronize()
-            row["device_ms"] = _device_busy(torch, prof)[0] / 20
+            call = lambda: decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)  # noqa: E731
+            chain = lambda: mlp_block(mlp, x)  # noqa: E731
+            # device time between events, with L2 flushed by a 64 MB read
+            # before each call (the decode loop's case: 12 layers' weights
+            # are far more than L2 holds; the kernels line's ``ms``) and warm:
+            # the kernel, and the unfused mlp_block chain (the int8 casts
+            # included; the route with ENABLED off, which the kernel's route
+            # never calls)
+            row["ms"] = device_span_ms(call, 100, flush)
+            row["warm_ms"] = device_span_ms(call, 200)
+            row["chain_device_ms"] = device_span_ms(chain, 100, flush)
+            row["chain_warm_device_ms"] = device_span_ms(chain, 100)
+            row["host_ms"] = host_ms(torch, call, 200)
+            row["chain_host_ms"] = host_ms(torch, chain, 200)
+            # back to back the host's enqueue sets the pace: not device times
+            row["back_to_back_ms"] = time_ms(call, 200, 10)
+            row["chain_back_to_back_ms"] = time_ms(chain, 200, 10)
             row["plain_ms"] = time_ms(
                 lambda: decode_mlp.fused_mlp_plain(x, w1, b1, w2, b2, s1, s2), 50, 5)
-            # the unfused chain (the route with ENABLED off); not called on this route
-            row["library_ms"] = time_ms(lambda: mlp_block(mlp, x), 200, 10)
-            row["library_call"] = ("mlp_block: linear, GELU, linear (the int8 dequant in each "
-                                   "linear); the port does not call it on the kernel's route")
+            row["library_ms"] = None  # no single PyTorch call computes fc1, GELU and fc2
             item = x.element_size()
             w_bytes = w1.numel() * w1.element_size() + w2.numel() * w2.element_size()
             nbytes = w_bytes + (f + d) * item + 2 * rows * d * item + (4 * (f + d) if int8 else 0)

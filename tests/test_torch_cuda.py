@@ -161,6 +161,36 @@ def test_wgmma_form_matches_matmul(gen, form, n, ksteps):
     assert (d - ref).abs().max().item() <= 1e-5 * max(ref.abs().max().item(), 1.0)
 
 
+@pytest.mark.parametrize("ksteps", [1, 4])
+@pytest.mark.parametrize("mode", ["ss", "ss_int8"])
+@pytest.mark.parametrize("n", [8, 32, 64, 128])
+def test_wgmma_width_matches_matmul(gen, n, mode, ksteps):
+    """The decode-MLP kernel's SS widths (``wf_wgmma_width_check``): D
+    (64 x n) = A B^T with B (n x 64) K-major in the 128-byte swizzle and A
+    by TMA (``ss``) or int8 converted by the threads into the swizzled bf16
+    layout with ``hopper::int8x4_to_bf16x4`` (``ss_int8``, as the kernel
+    converts int8 weights): exact, so only the fp32 sum order differs."""
+    import ctypes
+
+    from whisper_flamingo_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("wgmma_check").wf_wgmma_width_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    a8 = torch.randint(-128, 128, (64, 64), generator=gen, device="cuda", dtype=torch.int8)
+    a = a8.bfloat16() if mode == "ss_int8" else torch.randn(64, 64, generator=gen,
+                                                            device="cuda").bfloat16()
+    b = torch.randn(n, 64, generator=gen, device="cuda").bfloat16()
+    d = torch.full((64, n), float("nan"), device="cuda")
+    err = fn(a.data_ptr(), a8.data_ptr(), b.data_ptr(), d.data_ptr(), n,
+             {"ss": 0, "ss_int8": 1}[mode], ksteps, cuda_build.stream_ptr(a))
+    cuda_build.check(err, "wgmma_width_check")
+    torch.cuda.synchronize()
+    kk = 16 * ksteps
+    ref = a[:, :kk].float() @ b[:, :kk].float().t()
+    assert (d - ref).abs().max().item() <= 1e-5 * max(ref.abs().max().item(), 1.0)
+
+
 # every edge of the bf16 kernels' tiles: 64-row boxes and 128-row blocks
 EDGE_T = [1, 63, 64, 65, 127, 128, 129, 300, 1500]
 
@@ -355,6 +385,19 @@ def test_dtw_kernel_refuses_what_it_cannot_take(gen):
         dtw.dtw_trace(torch.zeros(5, 8, device="cuda", dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 447, 1023])
+def test_dtw_band_boundaries_bit_equal(gen, n):
+    """At the edges of a warp's 32 rows, of the ring between warps, and at
+    the most rows a trace takes: bit-equal to the plain version on N(0, 1)
+    costs and on tie-rich integer costs (M 1500, and M 37: the trace rows
+    start at every phase of a 16-byte span)."""
+    rng = np.random.default_rng(n)
+    for m, ints in ((1500, False), (37, True)):
+        x = rng.integers(0, 3, (n, m)) if ints else rng.standard_normal((n, m))
+        x = torch.from_numpy(x.astype(np.float32)).cuda()
+        assert torch.equal(dtw.dtw_trace(x), dtw.dtw_trace_plain(x)), (m, ints)
+
+
 def _mlp_weights(gen, d, f, dtype, int8):
     """fc1 (f, d) and fc2 (d, f) weights of N(0, 1/fan_in), biases 0.1 N(0, 1);
     int8: quantized per output channel, as quantize_decode_params does."""
@@ -391,6 +434,24 @@ def test_decode_mlp_kernel_matches_plain(gen, dtype, int8, rows):
                                                              torch.bfloat16: 1e-2}[dtype] * scale
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 16, 120, 128, 129, 1024])
+def test_decode_mlp_row_counts(gen, int8, rows):
+    """bf16 x at small's widths over every row tile (8 .. 128) and the row
+    tiles a CTA walks past 128 rows (129, 1024): within the tolerance of
+    the largest output, the same bits twice."""
+    from whisper_flamingo_tpu_torch.ops import decode_mlp
+
+    w1, b1, w2, b2, s1, s2 = _mlp_weights(gen, 768, 3072, torch.bfloat16, int8)
+    x = torch.randn(rows, 768, generator=gen, device="cuda").bfloat16()
+    out = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+    again = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+    assert out.shape == x.shape and torch.equal(out, again)
+    ref = decode_mlp.fused_mlp_plain(x, w1, b1, w2, b2, s1, s2)
+    scale = max(ref.float().abs().max().item(), 1.0)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+
+
 def test_decode_mlp_kernel_refuses_what_it_cannot_take(gen):
     from whisper_flamingo_tpu_torch.ops import decode_mlp
 
@@ -404,6 +465,15 @@ def test_decode_mlp_kernel_refuses_what_it_cannot_take(gen):
         decode_mlp._launch(x.bfloat16(), w1, b1.bfloat16(), w2, b2.bfloat16(), None, None)
     with pytest.raises(ValueError):  # not contiguous
         decode_mlp._launch(x, w2.t(), b1, w2, b2, None, None)
+    w1, b1, w2, b2, s1, s2 = _mlp_weights(gen, 64, 256, torch.bfloat16, True)
+    x = torch.randn(4, 64, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError):  # x of another width than the weights'
+        decode_mlp._launch(x[:, :48].contiguous(), w1, b1, w2, b2, s1, s2)
+    with pytest.raises(ValueError):  # int8 weights without their second scale
+        decode_mlp._launch(x, w1, b1, w2, b2, s1, None)
+    decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)  # checked once, then cached
+    with pytest.raises(ValueError):  # x not 16-byte aligned, on the cached route
+        decode_mlp._launch(x.view(-1)[1:].view(-1)[:3 * 64].view(3, 64), w1, b1, w2, b2, s1, s2)
 
 
 def test_debug_int8_decode_kernel_tokens_equal_plain(gen, monkeypatch):

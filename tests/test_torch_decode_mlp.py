@@ -141,3 +141,81 @@ def test_decode_loop_with_fused_mlp_token_parity(models, monkeypatch, quantize):
         assert g.tokens == r.tokens
         assert g.tokens == b.tokens
         assert abs(g.avg_logprob - r.avg_logprob) < 1e-4
+
+
+@pytest.mark.parametrize("rows,nt,tiles", [(1, 8, 1), (8, 8, 1), (9, 32, 1), (32, 32, 1),
+                                           (33, 128, 1), (120, 128, 1), (129, 128, 2),
+                                           (1024, 128, 8)])
+def test_plan_at_small_widths(rows, nt, tiles):
+    """The bf16 kernel's plan at small's d 768, f 3072: the row tile holds
+    the rows (128 at most, the rest walked in row tiles), fc1's contraction
+    over a cluster of 4 and fc2's over 8, so each pass runs at least 96
+    CTAs, and each CTA's shared memory fits an H100's 227 KB."""
+    for int8 in (False, True):
+        pl = decode_mlp.plan(rows, 768, 3072, int8)
+        assert (pl.nt, pl.tiles, pl.cl1, pl.cl2) == (nt, tiles, 4, 8)
+        assert (pl.kbs1, pl.kbs2, pl.ctas1, pl.ctas2) == (3, 6, 192, 96)
+        assert max(pl.smem1, pl.smem2) <= decode_mlp.SMEM_MAX
+        assert pl.kbs1 * pl.cl1 * 64 >= 768 and pl.kbs2 * pl.cl2 * 64 >= 3072
+
+
+@pytest.mark.parametrize("d,f", [(64, 256), (384, 1536), (1280, 5120), (80, 320)])
+def test_plan_covers_the_contraction(d, f):
+    """Every width the dispatch rule can send: the clusters are powers of
+    two that split the contraction into 64-wide blocks with none empty, and
+    the row tile shrinks until a CTA's shared memory fits."""
+    for rows in (1, 120, 1024):
+        pl = decode_mlp.plan(rows, d, f, False)
+        for k, cl, kbs in ((d, pl.cl1, pl.kbs1), (f, pl.cl2, pl.kbs2)):
+            blocks = -(-k // 64)
+            assert cl in (1, 2, 4, 8) and cl <= blocks
+            assert (cl - 1) * kbs < blocks <= cl * kbs
+        assert max(pl.smem1, pl.smem2) <= decode_mlp.SMEM_MAX
+        assert pl.nt * pl.tiles >= rows
+
+
+def test_weight_checks_run_once_per_weight_set(monkeypatch):
+    """The full checks of a weight set run when the kernel first sees it and
+    again only for other tensors or after an in-place change; what they
+    refuse is refused on every route."""
+    rng = np.random.default_rng(5)
+    _, tp = _quantized(*_mlp(rng, 64, 256))
+    w1, w2, s1, s2 = decode_mlp._weights(tp)
+    b1, b2 = tp[0].bias, tp[2].bias
+    seen = []
+    check = decode_mlp.check_weights
+    monkeypatch.setattr(decode_mlp, "check_weights", lambda *a: seen.append(1) or check(*a))
+    decode_mlp._CHECKED.clear()
+    first = decode_mlp._checked(w1, b1, w2, b2, s1, s2, torch.float32)
+    assert decode_mlp._checked(w1, b1, w2, b2, s1, s2, torch.float32) is first and len(seen) == 1
+    assert first.handle is None  # the kernel library's handle is made only for a launch
+    b1.add_(0.0)  # an in-place change bumps the version: checked again
+    decode_mlp._checked(w1, b1, w2, b2, s1, s2, torch.float32)
+    b2_other = b2.clone()  # another bias tensor with the same w1: checked again
+    decode_mlp._checked(w1, b1, w2, b2_other, s1, s2, torch.float32)
+    b2_other.data = b2_other.data.clone()  # new data under the same tensor: checked again
+    decode_mlp._checked(w1, b1, w2, b2_other, s1, s2, torch.float32)
+    assert len(seen) == 4
+    assert (first.d, first.f, first.code) == (64, 256, 0)
+    with pytest.raises(ValueError):  # int8 weights without their second scale
+        decode_mlp._checked(w1, b1, w2, b2, s1, None, torch.float32)
+    with pytest.raises(TypeError):  # biases of another dtype than x's
+        decode_mlp._checked(w1, b1, w2, b2, s1, s2, torch.bfloat16)
+    with pytest.raises(ValueError):  # not contiguous
+        decode_mlp._checked(w1, b1, w2.t().contiguous().t(), b2, s1, s2, torch.float32)
+
+
+def test_act_scratch_is_one_buffer_per_stream():
+    """fc1's output lives in one buffer per (stream, device, dtype), grown to
+    the largest call: calls on one stream share it, another stream or dtype
+    has its own."""
+    decode_mlp._SCRATCH.clear()
+    x = torch.zeros(2, 64)
+    first = decode_mlp._act(x, 11, 1000)
+    assert decode_mlp._act(x, 11, 500) == first
+    assert decode_mlp._act(x, 12, 1000) != first
+    assert decode_mlp._act(x.double(), 11, 1000) != first
+    assert decode_mlp._SCRATCH[(11, -1, torch.float32)].numel() >= 1000
+    decode_mlp._act(x, 11, 10 ** 6)  # a larger call grows it
+    assert decode_mlp._SCRATCH[(11, -1, torch.float32)].numel() >= 10 ** 6
+    decode_mlp._SCRATCH.clear()

@@ -17,70 +17,73 @@
 // W1 is fc1.weight (f, d) and W2 is fc2.weight (d, f), the nn.Linear
 // layouts, in x's dtype or int8 with the fp32 per-output-channel scales
 // s1 (f) and s2 (d); b1 (f) and b2 (d) in x's dtype; `act` is an (rows, f)
-// scratch buffer in x's dtype for a.
+// buffer in x's dtype for a. The wrapper prepares each weight set once
+// (wf_decode_mlp_prepare: pointers, widths, tensor maps) and launches with
+// the handle (wf_decode_mlp).
 //
-// What bounds it: at the decode shapes (rows 8 to 120, d 768, f 3072 at
-// `small`) the weights are 9.44 MB in bf16 (4.72 MB int8) and x, a and the
-// output a few hundred KB, while the two products are 4*rows*d*f flops,
-// 1.13 GFLOP at 120 rows (about 1.1 us of bf16 tensor-core time against
-// 2.8 us to read the weights at 3.35 TB/s): it is bound by the weight
-// bytes at every decode row count.
+// What bounds it on this card: the weight bytes. At the decode shapes
+// (rows 8 to 120, d 768, f 3072 at `small`) the weights are 9.44 MB in
+// bf16 (4.72 MB int8), x, a and the output a few hundred KB, and the two
+// products 4 rows d f flops (1.13 GFLOP at 120 rows: 1.1 us of bf16
+// tensor-core time against 1.4 us to read the int8 weights at 3.35 TB/s).
+// So every weight byte is read once, by every SM at once, and what follows
+// the read is kept short.
 //
-// Design for Hopper. The TPU kernel walked the ffn axis in order on one
-// core and kept one output block resident across the walk. Blocks on the
-// card run in parallel and in no order, and fc2 must sum over the whole
-// ffn axis, so the work is two passes, each launched over enough blocks to
-// stream its weights at once:
-//   1. fc1: one block per (32 ffn units, 16-row tile of x). It copies its
-//      (32, d) slice of W1 into shared memory with cp.async (all of it in
-//      flight at once: the weight read is the whole cost), each warp takes
-//      8 units over all of d, and the epilogue writes a in x's dtype to
-//      `act` (rows * f values: 737 KB in bf16 at 120 rows, against 9.44 MB
-//      of weights).
-//   2. fc2: one block per (8 output columns, 16-row tile). It copies its
-//      (8, f) slice of W2 into shared memory the same way; the 4 warps take
-//      interleaved 16-wide steps of the ffn axis, their partial sums meet in
-//      shared memory and are added in a fixed order; the epilogue applies
-//      s2, the cast and b2.
-//   The row tiles of one slice re-read it from L2, not HBM. (A first
-//   version walked every row tile in one block per slice: 96 blocks at any
-//   row count; PERF.md has both versions' times.)
-// So each output element's sum over the ffn axis is taken inside one
-// block in one fixed order: no atomics, no fp32 scratch of partial
-// outputs, and two launches on the same inputs give the same bits.
-//   - bf16 x: both products run on mma.sync.m16n8k16 (bf16 in, fp32
-//     accumulate). The 16-row tile of x (or act) is copied into shared
-//     memory in 512-wide chunks of the contraction, double-buffered, the
-//     next chunk in flight while this one multiplies (x and act are
-//     L2-resident, and every block reads them); the B fragments come from
-//     the shared weight tile, and each warp keeps two accumulators (two
-//     independent mma chains, added at the end). int8 weights are copied as
-//     int8 (half the bytes) and converted to bf16 in registers when the
-//     fragment is built: an int8 value is exact in bf16, so this is the
-//     product of the bf16 activations with the dequantized-before-scale
-//     weights, not an int8 x int8 product.
-//   - fp32 x (the checks' type): no TF32, so the products are fp32 FMA, one warp per output value with the lanes over the
-//     contraction and a butterfly sum (fixed order).
-// Rows past `rows` (8 and 120 are not multiples of 16) are masked: their
-// staged A rows are zero and they are not written.
+// Design for Hopper (bf16 x; the two passes fc1 + GELU and fc2):
+//   - The weight is the M side of `wgmma` (64 output features per CTA, one
+//     warpgroup), the rows the N side (N = 8, 32 or 128, the rows rounded
+//     up). One CTA reads its weight slice once for all rows; above 128 rows
+//     it walks row tiles with the slice held in shared memory.
+//   - The contraction is split over a thread-block cluster (CL CTAs: 4 over
+//     fc1's d, 8 over fc2's f at `small`, chosen by the wrapper's plan), so
+//     fc1 runs 48 x 4 CTAs and fc2 12 x 8 on 132 SMs. Each CTA's weight
+//     slice (64, K / CL) comes by TMA, all of it in flight under one
+//     mbarrier, through a tensor map the wrapper encodes once per weight
+//     tensor; the activation tile (N, K / CL) by cp.async into the 128-byte
+//     swizzle.
+//   - int8 weights: Hopper has no bf16 x s8 `wgmma`. The slice lands as
+//     int8 and the CTA converts it once into the bf16 swizzled layout
+//     (exact: an fp32 add on the byte placed in 2^23's mantissa, no
+//     conversion unit), so both weight types take the SS form. (The RS
+//     form with the weight converted into registers per fragment, tried
+//     first, kept the products of a CTA in series: PERF.md.)
+//   - The fp32 partial sums meet through distributed shared memory: CTA r
+//     of the cluster owns rows [r 64 / CL, (r+1) 64 / CL) of the slice;
+//     every CTA stores its partial sums of those rows into CTA r's shared
+//     memory, in the slot of its own rank, with st.async, which counts the
+//     bytes on CTA r's mbarrier; CTA r waits on it, adds the slots in rank
+//     order and runs the epilogue for its rows. Every output is thus summed
+//     in one fixed order: no atomics, no fp32 scratch in device memory, two
+//     launches give the same bits. At N = 128 the partial sums take the
+//     activation tile's place once every CTA's products are done (a cluster
+//     barrier), so that two fc1 CTAs share an SM.
+//   - fc2 launches in stream order after fc1. Programmatic dependent launch
+//     (fc2's CTAs landing their W2 slices while fc1 runs, then
+//     griddepcontrol.wait before they read `act`) failed on the card at
+//     N = 128 with "unspecified launch failure", for a reason not found; so
+//     it is off at every N until that is understood (its cost: PERF.md).
+// fp32 x (the checks' type): no TF32, so the products are fp32 FMA, one warp
+// per output value with the lanes over the contraction and a butterfly sum
+// (fixed order), two plain launches.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 128;  // threads per block
+constexpr int NT = 128;  // threads per block (the FMA kernels; one warpgroup for wgmma)
 constexpr int NW = NT / 32;
-constexpr int TF = 32;   // fc1: ffn units per block (4 warps x 8)
-constexpr int TD = 8;    // fc2: output columns per block
-constexpr int PAD = 16;  // bytes added to each shared-memory row (conflict-free fragment reads)
-constexpr int KC = 512;  // contraction chunk of the staged A rows (elements)
-constexpr int A_PITCH = KC * 2 + PAD;  // bytes per staged A row
-constexpr int STAGES = 2;              // staged A tiles: one in flight, one in use
+constexpr int MT = 64;   // weight rows (output features) per CTA: the wgmma M
+constexpr int KB = 64;   // contraction block: one 128-byte swizzled row of bf16
+constexpr int SMEM_MAX = 231424;  // dynamic shared memory: 227 KB less 1 KB for the static
 constexpr float kAlpha = 0.70710678118654752440f;  // 1/sqrt(2)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -101,215 +104,306 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 x on the tensor cores
+// bf16 x on wgmma
 // ---------------------------------------------------------------------------
 
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col). Fragment
-// layout (g = lane / 4, q = lane % 4): a0 (g, 2q..2q+1), a1 (g+8, 2q..),
-// a2 (g, 2q+8..), a3 (g+8, 2q+8..); b0 (k 2q..2q+1, n g), b1 (k 2q+8.., n g);
-// d0,d1 (g, 2q..2q+1), d2,d3 (g+8, 2q..2q+1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+// Shared-memory bytes of one pass's CTA (ops/decode_mlp.py `_pass_smem`
+// computes the same): 1024 to align the base, the bf16 weight slice
+// (swizzled), the activation tile, which once the products are done holds
+// the cluster's partial sums of this CTA's rows ([CL][64 / CL][N + 2] fp32;
+// their own region when the tile is smaller), and, for int8 weights, the
+// int8 slice as TMA lands it.
+__host__ __device__ constexpr int red_bytes(int nt) { return MT * (nt + 2) * 4; }
+__host__ __device__ constexpr bool aliased(int kbs, int nt) {
+  return nt >= 128 && kbs * nt * KB * 2 >= red_bytes(nt);
+}
+__host__ __device__ constexpr int b_bytes(bool alias, int kbs, int nt) {
+  return alias ? kbs * nt * KB * 2 : kbs * nt * KB * 2 + red_bytes(nt);
+}
+__host__ __device__ constexpr int pass_smem(bool int8, int kbs, int nt) {
+  return 1024 + kbs * MT * KB * 2 + b_bytes(aliased(kbs, nt), kbs, nt) + (int8 ? kbs * MT * KB : 0);
+}
+
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Two floats into another CTA's shared memory (cluster addresses), counted
+// as 8 bytes of transactions on that CTA's barrier.
+__device__ __forceinline__ void st_async_v2(uint32_t addr, float a, float b, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// The cluster barrier in two halves: arrive (releasing this thread's
+// writes) early, wait (acquiring the others') where it is needed.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Wait for the phase of parity `parity`, acquiring at cluster scope what
+// the transactions counted on it wrote.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = hopper::smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// Two consecutive weights (k, k+1) of a shared-memory row as a bf16 pair.
-__device__ __forceinline__ uint32_t b_pair(const bf16* row, int k) { return ld_pair(row + k); }
-__device__ __forceinline__ uint32_t b_pair(const int8_t* row, int k) {
-  const char2 v = *reinterpret_cast<const char2*>(row + k);
-  return pack_bf16(static_cast<float>(v.x), static_cast<float>(v.y));
-}
+// One pass: out[n][m] = epilogue(sum_k a_in[n][k] w[m][k]) for the CTA's 64
+// rows m of w (read through `wmap`), over all rows n. FC2 picks fc2's
+// epilogue, else fc1's. The cluster (CL CTAs) splits k: CTA r takes
+// k-blocks [r kbs, (r+1) kbs). Rows m of the slice are owned 64 / CL per
+// CTA: every CTA writes its partial sums of CTA r's rows into CTA r's
+// shared memory (slot = its own rank) with st.async, which counts the bytes
+// on CTA r's barrier; CTA r adds the slots in rank order.
+template <bool INT8, int N, bool FC2>
+__global__ void __launch_bounds__(NT) mlp_pass_kernel(
+    const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ a_in,
+    const bf16* __restrict__ bias, const float* __restrict__ scale, bf16* __restrict__ out,
+    int rows, int M, int K, int kbs) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t w_bar;    // the weight slice has landed
+  __shared__ uint64_t red_bar;  // the cluster's partial sums of this CTA's rows have landed
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int rows_per = MT / cl, pitch = N + 2;
+  const bool ALIAS = aliased(kbs, N);
+  uint8_t* wsm = hopper::align1024(smem_raw);                    // [kbs][64][128 B], swizzled
+  uint8_t* bsm = wsm + kbs * MT * KB * 2;                        // [kbs][N][128 B], swizzled
+  // [cl][rows_per][pitch]: over the activation tile at N = 128 (so that two
+  // fc1 CTAs share an SM), else beside it
+  float* red = reinterpret_cast<float*>(ALIAS ? bsm : bsm + kbs * N * KB * 2);
+  uint8_t* w8 = bsm + b_bytes(ALIAS, kbs, N);  // int8: [kbs][64][64 B]
+  const int tid = threadIdx.x;
+  const int m0 = (blockIdx.x / cl) * MT;
+  const int k0 = rank * kbs * KB;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy rows [r0, r0 + n) of a row-major (n_rows, len) weight into shared
-// memory rows of `pitch` bytes with cp.async; rows past n_rows are zero.
-// len * sizeof(WT) is a multiple of 16 (the wrapper checks). Does not wait.
-template <typename WT>
-__device__ __forceinline__ void stage_rows(unsigned char* sm, int pitch, const WT* w, int r0,
-                                           int n, int n_rows, int len) {
-  const int chunks = len * static_cast<int>(sizeof(WT)) / 16;
-  for (int i = threadIdx.x; i < n * chunks; i += NT) {
-    const int r = i / chunks, c = i % chunks;
-    unsigned char* dst = sm + r * pitch + c * 16;
-    if (r0 + r < n_rows) {
-      cp_async16(dst, reinterpret_cast<const unsigned char*>(w + (int64_t)(r0 + r) * len) + c * 16);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  // the weight slice (64, kbs * 64) from row m0, column k0, by TMA, all of
+  // it in flight at once; zeros past M and K
+  if (tid == 0) {
+    hopper::mbar_init(&w_bar, 1);
+    hopper::mbar_init(&red_bar, 1);
+    hopper::fence_barrier_init();
+    hopper::mbar_arrive_expect_tx(&w_bar, kbs * MT * KB * (INT8 ? 1 : 2));
+    for (int kb = 0; kb < kbs; ++kb)
+      hopper::tma_load_2d(INT8 ? w8 + kb * MT * KB : wsm + kb * MT * 128, &wmap, &w_bar,
+                          k0 + kb * KB, m0);
+  }
+  // this thread's epilogue rows: m = m0 + rank * rows_per + tid % rows_per
+  // for every element it finishes (NT is a multiple of rows_per)
+  const int my_m = m0 + rank * rows_per + tid % rows_per;
+  float my_scale = 1.f, my_bias = 0.f;
+  if (my_m < M) {  // loaded now (volatile: not sunk to their use at the end)
+    if (scale != nullptr) asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(my_scale) : "l"(scale + my_m));
+    unsigned short b;
+    asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(b) : "l"(bias + my_m));
+    my_bias = __bfloat162float(__ushort_as_bfloat16(b));
+  }
+  // the activation tile: rows n0 .. n0 + N - 1, the same columns, swizzled
+  auto load_b = [&](int n0) {
+    const int chunks = kbs * 8;
+    for (int i = tid; i < N * chunks; i += NT) {
+      const int n = i / chunks, kb = (i % chunks) / 8, c = i % 8, k = k0 + kb * KB + c * 8;
+      const bool in = n0 + n < rows && k < K;
+      cp_async16(bsm + kb * N * 128 + n * 128 + ((c ^ (n & 7)) * 16),
+                 in ? a_in + (int64_t)(n0 + n) * K + k : a_in, in);
     }
-  }
-}
-
-// Copy rows [r0, r0 + 16) x columns [k0, k0 + kc) of a row-major bf16
-// (rows, ld) matrix into shared-memory rows of `pitch` bytes with
-// cp.async; rows past `rows` are zero (the masked rows of the m16 tile).
-// Does not wait.
-__device__ __forceinline__ void stage_a(unsigned char* sa, int pitch, const bf16* a, int r0,
-                                        int rows, int ld, int k0, int kc) {
-  const int chunks = kc * 2 / 16;
-  for (int i = threadIdx.x; i < 16 * chunks; i += NT) {
-    const int r = i / chunks, c = i % chunks;
-    unsigned char* dst = sa + r * pitch + c * 16;
-    if (r0 + r < rows) {
-      cp_async16(dst, reinterpret_cast<const unsigned char*>(a + (int64_t)(r0 + r) * ld + k0) + c * 16);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-// One m16n8k16 step: A rows g and g+8 of the staged tile at column k, B
-// column n = g of the weight tile at contraction index kw.
-template <typename WT>
-__device__ __forceinline__ void mma_step(float (&acc)[4], const bf16* ra, const bf16* rb,
-                                         const WT* wrow, int k, int kw, int q) {
-  const uint32_t a[4] = {ld_pair(ra + k + 2 * q), ld_pair(rb + k + 2 * q),
-                         ld_pair(ra + k + 2 * q + 8), ld_pair(rb + k + 2 * q + 8)};
-  mma_bf16(acc, a, b_pair(wrow, kw + 2 * q), b_pair(wrow, kw + 2 * q + 8));
-}
-
-// Contraction chunk c of the block's 16-row A tile (rows r0 .. r0 + 15)
-// into buffer c % STAGES, as one cp.async group; past the last chunk the
-// group is empty, so every thread always has STAGES - 1 groups in flight
-// behind the current one.
-__device__ __forceinline__ void issue_a(unsigned char* sa, const bf16* a, int rows, int k, int r0,
-                                        int c, int n_chunks) {
-  if (c < n_chunks) {
-    const int k0 = c * KC;
-    stage_a(sa + (c % STAGES) * 16 * A_PITCH, A_PITCH, a, r0, rows, k, k0, min(KC, k - k0));
-  }
-  cp_async_commit();
-}
-
-// Both passes run one block per (weight slice, 16-row tile): blockIdx.x
-// picks the slice, blockIdx.y the row tile, so 120 rows launch 8 times the
-// blocks of 8 rows (the tiles' re-reads of a weight slice hit L2: the
-// weights are 9.44 MB at most). A block walks the contraction in 512-wide
-// chunks with the A tiles STAGES deep: the copies of the next STAGES - 1
-// chunks are in flight while chunk c multiplies.
-template <typename WT>
-__global__ void __launch_bounds__(NT) fc1_mma_kernel(
-    const bf16* __restrict__ x, const WT* __restrict__ w1, const bf16* __restrict__ b1,
-    const float* __restrict__ s1, bf16* __restrict__ act, int rows, int d, int f) {
-  extern __shared__ __align__(16) unsigned char sm[];
-  const int pitch = d * static_cast<int>(sizeof(WT)) + PAD;
-  unsigned char* sa = sm + TF * pitch;  // STAGES staged x buffers
-  const int f0 = blockIdx.x * TF, r0 = blockIdx.y * 16;
-  const int n_chunks = (d + KC - 1) / KC;
-  stage_rows(sm, pitch, w1, f0, TF, f, d);
-  for (int c = 0; c < STAGES - 1; ++c)  // the first group holds the weight tile too
-    issue_a(sa, x, rows, d, r0, c, n_chunks);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;
-  const WT* wrow = reinterpret_cast<const WT*>(sm + (warp * 8 + g) * pitch);  // B column n = g
-  const int col = f0 + warp * 8 + 2 * q;  // this thread's outputs: col, col + 1
-  float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc2[4] = {0.f, 0.f, 0.f, 0.f};  // two mma chains
-  for (int c = 0; c < n_chunks; ++c) {
-    const int k0 = c * KC, kc = min(KC, d - k0);
-    issue_a(sa, x, rows, d, r0, c + STAGES - 1, n_chunks);
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();
-    const unsigned char* buf = sa + (c % STAGES) * 16 * A_PITCH;
-    const bf16* ra = reinterpret_cast<const bf16*>(buf + g * A_PITCH);
-    const bf16* rb = reinterpret_cast<const bf16*>(buf + (g + 8) * A_PITCH);
-    int k = 0;
-    for (; k + 32 <= kc; k += 32) {
-      mma_step(acc, ra, rb, wrow, k, k0 + k, q);
-      mma_step(acc2, ra, rb, wrow, k + 16, k0 + k + 16, q);
-    }
-    if (k < kc) mma_step(acc, ra, rb, wrow, k, k0 + k, q);
-    __syncthreads();  // buffer c % STAGES is free for chunk c + STAGES
-  }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // the weight slice once it has landed; int8 -> bf16 (exact) into the
+  // swizzled layout the bf16 weights have
+  auto convert_w = [&]() {
+    hopper::mbar_wait(&w_bar, 0);
+    if constexpr (INT8) {
+      for (int i0 = tid; i0 < kbs * MT * 4; i0 += 2 * NT) {  // kbs * 256 chunks: 2 NT divides them
+        uint4 v[2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r = r0 + g + (j < 2 ? 0 : 8), cc = col + (j & 1);
-    if (r < rows && cc < f) {
-      float h = acc[j] + acc2[j];
-      if (s1 != nullptr) h *= s1[cc];
-      h += to_f(b1[cc]);
-      act[(int64_t)r * f + cc] = from_f<bf16>(gelu(h));
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + h * NT, kb = i / (MT * 4), m = (i / 4) % MT, c4 = i % 4;
+          v[h] = *reinterpret_cast<const uint4*>(w8 + kb * MT * KB + m * KB + c4 * 16);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + h * NT, kb = i / (MT * 4), m = (i / 4) % MT, c4 = i % 4;
+          uint32_t o[8];
+          hopper::int8x4_to_bf16x4(v[h].x, o[0], o[1]);
+          hopper::int8x4_to_bf16x4(v[h].y, o[2], o[3]);
+          hopper::int8x4_to_bf16x4(v[h].z, o[4], o[5]);
+          hopper::int8x4_to_bf16x4(v[h].w, o[6], o[7]);
+          uint8_t* row = wsm + kb * MT * 128 + m * 128;
+          *reinterpret_cast<uint4*>(row + (((2 * c4) ^ (m & 7)) * 16)) = make_uint4(o[0], o[1], o[2], o[3]);
+          *reinterpret_cast<uint4*>(row + (((2 * c4 + 1) ^ (m & 7)) * 16)) = make_uint4(o[4], o[5], o[6], o[7]);
+        }
+      }
     }
+  };
+  if (!ALIAS) cluster_arrive();  // this CTA's barriers are set
+  load_b(0);
+  convert_w();
+
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int tiles = (rows + N - 1) / N;
+  const uint32_t bar_local = hopper::smem_u32(&red_bar), red_local = hopper::smem_u32(red);
+  for (int t = 0; t < tiles; ++t) {
+    const int n0 = t * N;
+    if (t > 0) load_b(n0);  // the previous tile's products are done (cluster sync)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    hopper::fence_proxy_async();  // generic-proxy writes are read by wgmma (async proxy)
+    __syncthreads();
+
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    for (int st = 0; st < kbs * 4; ++st) {
+      const int kb = st / 4, kk = st % 4;
+      hopper::wgmma_ss<N>(acc, hopper::desc_k_major(wsm + kb * MT * 128) + 2 * kk,
+                          hopper::desc_k_major(bsm + kb * N * 128) + 2 * kk, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+
+    // every CTA's barriers are set (and, aliased, its products read its
+    // activation tile no more: the partial sums land there)
+    if (ALIAS) {
+      cluster_arrive();
+      cluster_wait();
+    } else if (t == 0) {
+      cluster_wait();
+    }
+    // this CTA's partial sums to their rows' owners: row m goes to CTA
+    // m / rows_per, slot `rank`, [m % rows_per][n]
+    if (tid == 0) hopper::mbar_arrive_expect_tx(&red_bar, MT * N * 4);  // every slot, this tile
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = 16 * warp + g + 8 * r, owner = m / rows_per;
+      const uint32_t dst = mapa(red_local, owner) + ((rank * rows_per + m % rows_per) * pitch) * 4;
+      const uint32_t bar = mapa(bar_local, owner);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+        st_async_v2(dst + (8 * j + 2 * q) * 4, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1], bar);
+    }
+    mbar_wait_cluster(&red_bar, t & 1);
+    // rows rank * rows_per .. + rows_per - 1 of the slice: the slots added in
+    // rank order, then the epilogue; four elements a thread at a time, so
+    // that their loads and their GELUs overlap
+    for (int e0 = tid; e0 < rows_per * N; e0 += 4 * NT) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = min(e0 + u * NT, rows_per * N - 1), ml = e % rows_per, n = e / rows_per;
+        float part[8];
+#pragma unroll
+        for (int p = 0; p < 8; ++p) part[p] = p < cl ? red[(p * rows_per + ml) * pitch + n] : 0.f;
+        v[u] = part[0];
+#pragma unroll
+        for (int p = 1; p < 8; ++p)
+          if (p < cl) v[u] += part[p];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * NT, row = n0 + e / rows_per;
+        if (e < rows_per * N && row < rows && my_m < M) {
+          const float h = v[u] * my_scale;
+          if constexpr (FC2) {
+            const float ox = to_f(from_f<bf16>(h));
+            out[(int64_t)row * M + my_m] = from_f<bf16>(ox + my_bias);
+          } else {
+            out[(int64_t)row * M + my_m] = from_f<bf16>(gelu(h + my_bias));
+          }
+        }
+      }
+    }
+    // before the next tile, every CTA has read its slots (peers rewrite
+    // them) and every product of this tile is done (bsm is rewritten)
+    if (t + 1 < tiles) cluster.sync();
   }
 }
 
-template <typename WT>
-__global__ void __launch_bounds__(NT) fc2_mma_kernel(
-    const bf16* __restrict__ act, const WT* __restrict__ w2, const bf16* __restrict__ b2,
-    const float* __restrict__ s2, bf16* __restrict__ out, int rows, int d, int f) {
-  extern __shared__ __align__(16) unsigned char sm[];
-  __shared__ float part[NW][16][TD];
-  const int pitch = f * static_cast<int>(sizeof(WT)) + PAD;
-  unsigned char* sa = sm + TD * pitch;  // STAGES staged act buffers
-  const int d0 = blockIdx.x * TD, r0 = blockIdx.y * 16;
-  const int n_chunks = (f + KC - 1) / KC;
-  stage_rows(sm, pitch, w2, d0, TD, d, f);
-  for (int c = 0; c < STAGES - 1; ++c)  // the first group holds the weight tile too
-    issue_a(sa, act, rows, f, r0, c, n_chunks);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;
-  const WT* wrow = reinterpret_cast<const WT*>(sm + g * pitch);  // B column n = g
-  float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc2[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; c < n_chunks; ++c) {
-    const int k0 = c * KC, kc = min(KC, f - k0);
-    issue_a(sa, act, rows, f, r0, c + STAGES - 1, n_chunks);
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();
-    const unsigned char* buf = sa + (c % STAGES) * 16 * A_PITCH;
-    const bf16* ra = reinterpret_cast<const bf16*>(buf + g * A_PITCH);
-    const bf16* rb = reinterpret_cast<const bf16*>(buf + (g + 8) * A_PITCH);
-    // the warps take interleaved 16-wide steps, alternating two
-    // accumulators: a fixed order per warp
-    const int n_steps = kc / 16;
-    int st = warp;
-    for (; st + NW < n_steps; st += 2 * NW) {
-      mma_step(acc, ra, rb, wrow, st * 16, k0 + st * 16, q);
-      mma_step(acc2, ra, rb, wrow, (st + NW) * 16, k0 + (st + NW) * 16, q);
-    }
-    if (st < n_steps) mma_step(acc, ra, rb, wrow, st * 16, k0 + st * 16, q);
-    __syncthreads();  // buffer c % STAGES is free for chunk c + STAGES
+template <bool INT8, int N, bool FC2>
+int launch_pass(const CUtensorMap& wmap, const bf16* a_in, const bf16* bias, const float* scale,
+                bf16* out, int rows, int M, int K, int cl, cudaStream_t s) {
+  auto kernel = mlp_pass_kernel<INT8, N, FC2>;
+  const int kbs = ((K + KB - 1) / KB + cl - 1) / cl;
+  const int smem = pass_smem(INT8, kbs, N);
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  static int allowed = 48 * 1024;  // the instantiation's dynamic shared memory limit so far
+  if (smem > allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
   }
-  part[warp][g][2 * q] = acc[0] + acc2[0];
-  part[warp][g][2 * q + 1] = acc[1] + acc2[1];
-  part[warp][g + 8][2 * q] = acc[2] + acc2[2];
-  part[warp][g + 8][2 * q + 1] = acc[3] + acc2[3];
-  __syncthreads();
-  // one output per thread: 16 rows x 8 columns, the warps' partial sums
-  // added in a fixed order
-  const int rr = threadIdx.x / TD, cc = threadIdx.x % TD;
-  const int r = r0 + rr, col = d0 + cc;
-  if (r < rows && col < d) {
-    float o = part[0][rr][cc];
-#pragma unroll
-    for (int w = 1; w < NW; ++w) o += part[w][rr][cc];
-    if (s2 != nullptr) o *= s2[col];
-    const float ox = to_f(from_f<bf16>(o));
-    out[(int64_t)r * d + col] = from_f<bf16>(ox + to_f(b2[col]));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((M + MT - 1) / MT) * cl);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, kernel, wmap, a_in, bias, scale, out, rows, M, K, kbs));
+}
+
+// A weight set as the wrapper prepares it once: the pointers, the widths,
+// the types and, for bf16 x, the weights' tensor maps (boxes of 64 rows x
+// 64 columns: bf16 in the 128-byte swizzle, int8 plain).
+struct MlpSet {
+  CUtensorMap map1, map2;
+  const void *w1, *b1, *w2, *b2;
+  const float *s1, *s2;
+  int d, f, dtype, w_int8;
+};
+
+template <bool INT8, int N>
+int launch_wgmma(const MlpSet& m, const void* x, void* act, void* out, int rows, int cl1, int cl2,
+                 cudaStream_t s) {
+  int err = launch_pass<INT8, N, false>(m.map1, static_cast<const bf16*>(x),
+                                        static_cast<const bf16*>(m.b1), m.s1,
+                                        static_cast<bf16*>(act), rows, m.f, m.d, cl1, s);
+  if (err != 0) return err;
+  return launch_pass<INT8, N, true>(m.map2, static_cast<const bf16*>(act),
+                                    static_cast<const bf16*>(m.b2), m.s2, static_cast<bf16*>(out),
+                                    rows, m.d, m.f, cl2, s);
+}
+
+template <bool INT8>
+int launch_bf16(const MlpSet& m, const void* x, void* act, void* out, int rows, int nt, int cl1,
+                int cl2, cudaStream_t s) {
+  switch (nt) {
+    case 8: return launch_wgmma<INT8, 8>(m, x, act, out, rows, cl1, cl2, s);
+    case 32: return launch_wgmma<INT8, 32>(m, x, act, out, rows, cl1, cl2, s);
+    case 128: return launch_wgmma<INT8, 128>(m, x, act, out, rows, cl1, cl2, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -357,35 +451,6 @@ __global__ void __launch_bounds__(NT) fc2_fma_kernel(
   }
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(bytes)));
-}
-
-template <typename WT>
-int launch_mma(const void* x, const void* w1, const void* b1, const float* s1, const void* w2,
-               const void* b2, const float* s2, void* act, void* out, int rows, int d, int f,
-               cudaStream_t s) {
-  const size_t sm1 = static_cast<size_t>(TF) * (d * sizeof(WT) + PAD) + STAGES * 16 * A_PITCH;
-  const size_t sm2 = static_cast<size_t>(TD) * (f * sizeof(WT) + PAD) + STAGES * 16 * A_PITCH;
-  int err = set_smem(fc1_mma_kernel<WT>, sm1);
-  if (err == 0) err = set_smem(fc2_mma_kernel<WT>, sm2);
-  if (err != 0) return err;
-  const int tiles = (rows + 15) / 16;
-  fc1_mma_kernel<WT><<<dim3((f + TF - 1) / TF, tiles), NT, sm1, s>>>(
-      static_cast<const bf16*>(x), static_cast<const WT*>(w1), static_cast<const bf16*>(b1), s1,
-      static_cast<bf16*>(act), rows, d, f);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  fc2_mma_kernel<WT><<<dim3((d + TD - 1) / TD, tiles), NT, sm2, s>>>(
-      static_cast<const bf16*>(act), static_cast<const WT*>(w2), static_cast<const bf16*>(b2), s2,
-      static_cast<bf16*>(out), rows, d, f);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename WT>
 int launch_fma(const void* x, const void* w1, const void* b1, const float* s1, const void* w2,
                const void* b2, const float* s2, void* act, void* out, int rows, int d, int f,
@@ -403,25 +468,57 @@ int launch_fma(const void* x, const void* w1, const void* b1, const float* s1, c
 
 }  // namespace
 
-// dtype (of x, act, out, b1, b2 and plain weights): 0 = float32, 1 =
-// bfloat16. w_int8: 1 when w1/w2 are int8 with the fp32 scales s1 (f) and
-// s2 (d), 0 when they are in x's dtype (s1 and s2 null). d and f are
-// multiples of 16; every pointer is 16-byte aligned (the wrapper checks).
-// Launches the two passes on `stream`; returns the first launch error
-// (cudaGetLastError(), 0 when both were accepted).
-extern "C" int wf_decode_mlp(const void* x, const void* w1, const void* b1, const float* s1,
-                             const void* w2, const void* b2, const float* s2, void* act,
-                             void* out, int rows, int d, int f, int dtype, int w_int8,
-                             void* stream) {
+// Prepares a weight set once (the wrapper keeps it while the weights live):
+// dtype (of x, act, out, b1, b2 and plain weights) 0 = float32, 1 =
+// bfloat16; w_int8 1 when w1 (f, d) and w2 (d, f) are int8 with the fp32
+// scales s1 (f) and s2 (d), 0 when they are in x's dtype (s1, s2 null). d
+// and f are multiples of 16 and every pointer 16-byte aligned (the wrapper
+// checks). For bf16 it encodes the weights' tensor maps. Returns the set,
+// or null with *err set (cudaErrorInvalidValue, or hopper::kEncodeError +
+// the CUresult).
+extern "C" void* wf_decode_mlp_prepare(const void* w1, const void* b1, const float* s1,
+                                       const void* w2, const void* b2, const float* s2, int d,
+                                       int f, int dtype, int w_int8, int* err) {
+  *err = 0;
+  if ((dtype != 0 && dtype != 1) || d % 16 || f % 16) {
+    *err = static_cast<int>(cudaErrorInvalidValue);
+    return nullptr;
+  }
+  MlpSet* m = new MlpSet();
+  *m = MlpSet{{}, {}, w1, b1, w2, b2, s1, s2, d, f, dtype, w_int8};
+  if (dtype == 1) {
+    const int eb = w_int8 ? 1 : 2;
+    const CUtensorMapSwizzle sw = w_int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
+    *err = hopper::encode_2d(&m->map1, w1, eb, f, d, MT, KB, sw);
+    if (*err == 0) *err = hopper::encode_2d(&m->map2, w2, eb, d, f, MT, KB, sw);
+    if (*err != 0) {
+      delete m;
+      return nullptr;
+    }
+  }
+  return m;
+}
+
+extern "C" void wf_decode_mlp_free(void* set) { delete static_cast<MlpSet*>(set); }
+
+// x (rows, d), act (rows, f) and out (rows, d) in the set's dtype, 16-byte
+// aligned, on the card. bf16 only: nt (8, 32 or 128) is the row tile, cl1
+// and cl2 (1, 2, 4 or 8) the cluster sizes of fc1 and fc2
+// (ops/decode_mlp.py `plan`). Launches the two passes on `stream`; returns
+// the first launch error (0 when both were accepted).
+extern "C" int wf_decode_mlp(const void* set, const void* x, void* act, void* out, int rows,
+                             int nt, int cl1, int cl2, void* stream) {
+  const MlpSet& m = *static_cast<const MlpSet*>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;
-  if (dtype == 1) {
-    return w_int8 ? launch_mma<int8_t>(x, w1, b1, s1, w2, b2, s2, act, out, rows, d, f, s)
-                  : launch_mma<bf16>(x, w1, b1, s1, w2, b2, s2, act, out, rows, d, f, s);
+  if (m.dtype == 1) {
+    auto ok = [](int c) { return c == 1 || c == 2 || c == 4 || c == 8; };
+    if (!ok(cl1) || !ok(cl2)) return static_cast<int>(cudaErrorInvalidValue);
+    return m.w_int8 ? launch_bf16<true>(m, x, act, out, rows, nt, cl1, cl2, s)
+                    : launch_bf16<false>(m, x, act, out, rows, nt, cl1, cl2, s);
   }
-  if (dtype == 0) {
-    return w_int8 ? launch_fma<int8_t>(x, w1, b1, s1, w2, b2, s2, act, out, rows, d, f, s)
-                  : launch_fma<float>(x, w1, b1, s1, w2, b2, s2, act, out, rows, d, f, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return m.w_int8 ? launch_fma<int8_t>(x, m.w1, m.b1, m.s1, m.w2, m.b2, m.s2, act, out, rows,
+                                       m.d, m.f, s)
+                  : launch_fma<float>(x, m.w1, m.b1, m.s1, m.w2, m.b2, m.s2, act, out, rows,
+                                      m.d, m.f, s);
 }

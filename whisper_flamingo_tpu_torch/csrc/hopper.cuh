@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives for the port's tensor-core kernels, in inline
-// PTX: TMA tile loads into shared memory under mbarriers, wgmma products in
-// the SS and RS forms with the 128-byte-swizzle shared-memory descriptor
-// (and an RS m64n8 form on an unswizzled B),
+// PTX: TMA tile loads (2-D and 4-D) into shared memory under mbarriers,
+// wgmma products in the SS and RS forms with the 128-byte-swizzle
+// shared-memory descriptor (SS at N = 8, 32, 64, 128; RS at 64, and an RS
+// m64n8 form on an unswizzled B), an exact int8 -> bf16 conversion,
 // the async-proxy fence and setmaxnreg; and, on the host, the encoding of
 // the tensor maps that the TMA loads read (through the runtime's driver
 // entry point, so a library built on this header links no libcuda).
@@ -151,6 +152,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+// Four int8 (a 32-bit word) as four bf16 (two 32-bit words), exactly and
+// without the conversion unit: each byte, offset by 128, becomes the low
+// byte of the fp32 2^23 + u; one add takes off 2^23 + 128, and since the
+// result is an integer of at most 8 bits its bf16 is the fp32's upper half.
+__device__ __forceinline__ void int8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
@@ -164,6 +179,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// One box of a 2-D tensor map into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -303,6 +328,43 @@ __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// The decode-MLP kernel's widths (csrc/decode_mlp.cu): the rows of the
+// activations are N; B K-major (stored [n][k], 128-byte swizzle), so no
+// transpose bit.
+
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D(64xN) (+)= A(64x16) B(16xN) for N in {8, 32, 64, 128}, A and B
+// K-major by descriptor.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 8) wgmma_ss_n8(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_ss_n32(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<0>(d, a, b, scale_d);
+  else wgmma_ss_n128<0>(d, a, b, scale_d);
+}
+
 // ---------------------------------------------------------------------------
 // Host: tensor maps
 // ---------------------------------------------------------------------------
@@ -348,6 +410,24 @@ static inline int encode_rows64(CUtensorMap* map, const void* base, int t, int n
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+// A 2-D map over a row-major (rows, cols) matrix of `elem_bytes`-byte
+// elements (bf16 or 8-bit), boxes of (box_rows, box_cols); elements past
+// the matrix read as zeros. Returns 0 or kEncodeError + the CUresult.
+static inline int encode_2d(CUtensorMap* map, const void* base, int elem_bytes, int rows, int cols,
+                            int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                        2, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }

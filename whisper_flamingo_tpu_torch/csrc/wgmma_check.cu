@@ -6,7 +6,10 @@
 // descriptors (K-major and MN-major), the k-slice advances, the RS form's
 // A-fragment layout and the accumulator layout; and the m64n8 RS form of
 // the forward variants' row-sum product, its B copied by the threads into
-// the unswizzled core-matrix layout that desc_plain describes. It is on no
+// the unswizzled core-matrix layout that desc_plain describes; and the
+// decode-MLP kernel's SS widths (csrc/decode_mlp.cu) at N = 8, 32, 64 and
+// 128 against a K-major swizzled B, with A by TMA or converted from int8
+// into the swizzled layout as that kernel converts its weights. It is on no
 // system path.
 
 #include <cuda_bf16.h>
@@ -119,6 +122,77 @@ __global__ void __launch_bounds__(128) wgmma_check_kernel(const __grid_constant_
       }
 }
 
+
+// The decode-MLP widths: D (64 x N) = A (64 x 16 ksteps) B^T, B (N, 64)
+// [n][k] by TMA in the 128-byte swizzle, SS. mode 0: A bf16 by TMA; 1: A
+// int8 (64, 64) [m][k], converted by the threads into the swizzled bf16
+// layout with hopper::int8x4_to_bf16x4, as the decode-MLP kernel does.
+template <int N>
+__global__ void __launch_bounds__(128) wgmma_width_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+    const int8_t* __restrict__ a8, float* __restrict__ d, int mode, int ksteps) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* as = base;
+  uint8_t* bs = base + 64 * 64 * 2;
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, (mode == 0 ? 64 * 64 * 2 : 0) + N * 64 * 2);
+    if (mode == 0) tma_load_4d(as, &amap, &bar, 0, 0, 0, 0);
+    tma_load_4d(bs, &bmap, &bar, 0, 0, 0, 0);
+  }
+  if (mode == 1) {  // 16 int8 of row m a thread-chunk: two swizzled 16-byte chunks
+    for (int i = threadIdx.x; i < 64 * 4; i += 128) {
+      const int m = i / 4, c4 = i % 4;
+      const uint4 v = *reinterpret_cast<const uint4*>(a8 + m * 64 + c4 * 16);
+      uint32_t o[8];
+      int8x4_to_bf16x4(v.x, o[0], o[1]);
+      int8x4_to_bf16x4(v.y, o[2], o[3]);
+      int8x4_to_bf16x4(v.z, o[4], o[5]);
+      int8x4_to_bf16x4(v.w, o[6], o[7]);
+      uint8_t* row = as + m * 128;
+      *reinterpret_cast<uint4*>(row + (((2 * c4) ^ (m & 7)) * 16)) = make_uint4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<uint4*>(row + (((2 * c4 + 1) ^ (m & 7)) * 16)) = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+  mbar_wait(&bar, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4, r0 = warp * 16 + g;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  const uint64_t ad = desc_k_major(as), bd = desc_k_major(bs);
+  fence_regs(acc);
+  wgmma_fence();
+  for (int kk = 0; kk < ksteps; ++kk) wgmma_ss<N>(acc, ad + 2 * kk, bd + 2 * kk, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) d[(r0 + 8 * r) * N + 8 * j + 2 * tq + c] = acc[4 * j + 2 * r + c];
+}
+
+template <int N>
+int launch_width(const CUtensorMap& am, const CUtensorMap& bm, const void* a8, float* d, int mode,
+                 int ksteps, cudaStream_t s) {
+  const int smem = 1024 + 64 * 64 * 2 + N * 64 * 2;
+  cudaFuncSetAttribute(wgmma_width_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  wgmma_width_kernel<N><<<1, 128, smem, s>>>(am, bm, static_cast<const int8_t*>(a8), d, mode,
+                                             ksteps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a, b, d contiguous on the card (see the kernel); n 64 or 128 (128 only
@@ -143,4 +217,26 @@ extern "C" int wf_wgmma_check(const void* a, const void* b, float* d, int n, int
       am, bm, static_cast<const bf16*>(a), static_cast<const bf16*>(b), d, n, form, ksteps,
       form == 4 ? 0 : b_rows * 64 * 2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// a (64, 64) bf16 (mode 0), a8 (64, 64) int8 (mode 1), b (n, 64) bf16, d
+// (64, n) fp32, all contiguous on the card; n 8, 32, 64 or 128; mode 0 or
+// 1; ksteps 1..4. Returns the launch's cudaGetLastError(),
+// cudaErrorInvalidValue for arguments it does not take, or
+// hopper::kEncodeError + the CUresult.
+extern "C" int wf_wgmma_width_check(const void* a, const void* a8, const void* b, float* d, int n,
+                                    int mode, int ksteps, void* stream) {
+  if (mode < 0 || mode > 1 || ksteps < 1 || ksteps > 4) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap am, bm;
+  int err = encode_rows64(&am, a, 64, 1, 1, 64, 64 * 64, 64 * 64, 64);
+  if (!err) err = encode_rows64(&bm, b, n, 1, 1, 64, 64 * n, 64 * n, n);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 8: return launch_width<8>(am, bm, a8, d, mode, ksteps, s);
+    case 32: return launch_width<32>(am, bm, a8, d, mode, ksteps, s);
+    case 64: return launch_width<64>(am, bm, a8, d, mode, ksteps, s);
+    case 128: return launch_width<128>(am, bm, a8, d, mode, ksteps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

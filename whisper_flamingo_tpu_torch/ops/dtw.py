@@ -10,7 +10,12 @@ trace bit for bit.
 
 - :func:`dtw_trace` fills the (N+1, M+1) int8 trace matrix: the kernel
   (``csrc/dtw.cu``) for a CUDA tensor, :func:`dtw_trace_plain` for a CPU
-  tensor;
+  tensor. The kernel is a wavefront bound by its chain of N + M dependent
+  diagonals: one row per lane, the lanes skewed by a column, each taking
+  the cost above from the lane before with a shuffle, warps chained
+  through a shared ring; x is read into registers a block of 16 steps
+  ahead, the trace leaves in 16-byte spans. :func:`chain_floor_ns` times
+  the dependent step alone;
 - :func:`backtrace_np` walks it back on the host (sequential, O(N+M));
 - :func:`dtw` is the path: an empty matrix gives ``zeros((2, 0))``, a CPU
   tensor or a numpy array the plain version, a CUDA tensor the kernel, at
@@ -35,7 +40,7 @@ import torch
 from . import cuda_build
 
 INF = np.float32(np.inf)
-MAX_ROWS = 1024  # one thread per row i in [0, N], one block
+MAX_ROWS = 1024  # N + 1 rows of the trace: one thread per row, one block
 
 
 def backtrace_np(trace: np.ndarray) -> np.ndarray:
@@ -123,12 +128,13 @@ def dtw_trace_plain(x: torch.Tensor) -> torch.Tensor:
 
 def _lib():
     lib = cuda_build.load("dtw")
-    fn = lib.wf_dtw_trace
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-    return fn
+    if lib.wf_dtw_trace.argtypes is None:
+        lib.wf_dtw_trace.restype = ctypes.c_int
+        lib.wf_dtw_trace.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+        lib.wf_dtw_chain_floor.restype = ctypes.c_int
+        lib.wf_dtw_chain_floor.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return lib
 
 
 def dtw_trace(x: torch.Tensor) -> torch.Tensor:
@@ -148,12 +154,27 @@ def dtw_trace(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dtw_trace: N + 1 must be in [2, {MAX_ROWS}] and M >= 1, got {(n, m)}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("dtw_trace: the cost must be a contiguous float32 tensor")
-    fn = _lib()
     trace = torch.empty((n + 1, m + 1), dtype=torch.int8, device=x.device)
-    err = fn(x.data_ptr(), trace.data_ptr(), n, m, cuda_build.stream_ptr(x))
+    err = _lib().wf_dtw_trace(x.data_ptr(), trace.data_ptr(), n, m, cuda_build.stream_ptr(x))
     cuda_build.check(err, "dtw_trace")
     dtw_trace.launches += 1
     return trace
+
+
+def chain_floor_ns(iters: int = 100_000) -> float:
+    """Device ns per dependent step of the wavefront alone (one warp: the
+    shuffle, the cascade and the add, ``iters`` times), from CUDA events
+    around one launch after a warm-up; needs a card."""
+    lib = _lib()
+    out = torch.empty(32, device="cuda")
+    stream = cuda_build.stream_ptr(out)
+    cuda_build.check(lib.wf_dtw_chain_floor(out.data_ptr(), 1000, stream), "dtw_chain_floor")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    cuda_build.check(lib.wf_dtw_chain_floor(out.data_ptr(), iters, stream), "dtw_chain_floor")
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e6 / iters
 
 
 dtw_trace.launches = 0

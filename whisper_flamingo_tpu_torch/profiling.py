@@ -127,3 +127,35 @@ def model_flops(
 def mfu(flops_per_sec: float) -> float:
     """Model FLOPs utilization against the H100's dense bf16 peak."""
     return flops_per_sec / H100_BF16_PEAK_FLOPS
+
+
+def device_span_ms(fn, calls: int, flush=None, spin_cycles: int = 1_000_000) -> float:
+    """Device time per call of ``fn`` (ms, the median over ``calls``
+    calls): from a CUDA event recorded just before the call to one just
+    after it, on the current stream.
+
+    Before each call a read (sum) of ``flush`` runs, when given: a tensor
+    larger than the 50 MB L2, so that the call finds its inputs in device
+    memory (without it L2 stays warm). Then the device spins for
+    ``spin_cycles`` clock cycles (~0.5 ms at 1M), long enough for the host
+    to enqueue the whole call first; so the time is what the device takes
+    to run the call's kernels one after another, gaps between them
+    included, and none of the host's time. No profiler, so no record is
+    dropped or told apart by name."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(calls)]
+    for start, end in marks:
+        if flush is not None:
+            flush.sum()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in marks)
