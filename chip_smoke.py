@@ -123,14 +123,21 @@ each printing one JSON line:
     bound, the plain versions' and SDPA's; then each kernel alone in turns
     (csbound with its kmax computed beforehand; the kernels line takes
     these) and the kmax reduction's own time.
-16. mma_pair: the pair kernel (``csrc/mma_pair.cu``) against
-    ``pair_chain_plain`` at iters 1, 2, 3 for d 64, 128, 256 (one bf16 ulp
-    of the output scale; bit-equal reruns); the first iteration after which
-    the probe's operands are all zero; then the probe entry point
-    (``tools.packed_probe2.run``) at its four (d, n) points at 512 rows and
-    at 33,792 (two blocks per SM): ms, raw and useful TF/s, the two ratios;
-    at d 64 and 512 rows the bound, the plain version and the chain of
-    ``torch.addmm`` calls beside it.
+16. mma_pair: the pair kernel (``csrc/mma_pair.cu``: u and v resident in
+    a cluster's shared memory, ``wgmma``, o reduced across the cluster in
+    rank order) against ``pair_chain_plain`` at iters 1, 2, 3 for each of
+    the probe's four (d, n) points at 512 and at 33,792 rows, each in the
+    launch its wrapper plans (one bf16 ulp of the output scale; bit-equal
+    reruns); the first iteration after which the probe's
+    operands are all zero; then the probe entry point
+    (``tools.packed_probe2.run``) at its four points at 512 rows and at
+    33,792 (two 128-row blocks per SM): ms, µs per iteration, raw and
+    useful TF/s, the two ratios, each point's plan (cluster size, rows per
+    CTA, shared bytes, ``cudaOccupancyMaxActiveClusters``); at d 64 and
+    512 rows the bound, the plain version, the chain of ``torch.addmm``
+    calls and the same chain replayed from a CUDA graph beside it; at d 64
+    on the filled card the rate on steady operands that do not decay,
+    beside the rate on the probe's (zero) operands.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
@@ -156,6 +163,7 @@ T_MAX, D_MODEL, N_HEAD = 448, 768, 12
 LONGFORM_SECONDS, MAX_WINDOWS = 90, 40
 CB_REQUESTS = 32
 EDGE_T = (63, 64, 65, 127, 128, 129)  # with T = 1: the edges of 64-row boxes, 128-row blocks
+FILL_ROWS = 2 * 132 * 128  # the pair probe's rows that fill the card
 
 
 def emit(obj) -> None:
@@ -1185,34 +1193,55 @@ def _addmm_chain(torch, w, v, u, iters):
     return w
 
 
+def _graph_chain_ms(torch, w, v, u, iters):
+    """The addmm chain captured once in a CUDA graph and replayed: the
+    library's device time without the host's launch rate. Returns the ms
+    per replay and the chain's output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # cuBLAS's handle and workspace before the capture
+        _addmm_chain(torch, w, v, u, 2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _addmm_chain(torch, w, v, u, iters)
+    return time_ms(graph.replay, 3, 1), out
+
+
 def phase_mma_pair(torch):
-    """The pair kernel against its plain version, the operands' decay, and
-    the probe's rates at 512 rows and at a row count that fills the card."""
+    """The pair kernel against its plain version at 512 and 33,792 rows, in
+    the launch its wrapper plans for each; the operands' decay; the probe's
+    rates at 512 rows and at the row count that fills the card; and the
+    rate on operands that do not decay."""
     from whisper_flamingo_tpu_torch.ops import mma_pair
     from whisper_flamingo_tpu_torch.tools import packed_probe2 as probe
 
     rel = 2.0 ** -7  # one bf16 ulp of the output scale: fp32 sums in another order
     checks = []
-    for d in mma_pair.HEAD_WIDTHS:
-        w, v, u = probe.make_operands(512, probe.TK, d, "cuda", seed=d)
-        for iters in (1, 2, 3):
-            got = mma_pair.pair_chain(w, v, u, iters)
-            again = mma_pair.pair_chain(w, v, u, iters)
-            ref = mma_pair.pair_chain_plain(w, v, u, iters)
-            scale = ref.float().abs().max().item()
-            row = {"d": d, "iters": iters, "max_abs_err": max_err(got, ref), "scale": scale,
-                   "rel_tol": rel, "same_bits_twice": torch.equal(got, again)}
-            checks.append(row)
-            if not (scale > 0 and row["same_bits_twice"] and row["max_abs_err"] <= rel * scale):
-                raise AssertionError(f"mma_pair: {row}")
+    for rows in (512, FILL_ROWS):
+        for _, d, n, _, _ in probe.POINTS:
+            w, v, u = probe.make_operands(rows, n, d, "cuda", seed=d)
+            p = mma_pair.plan(rows, n, d)
+            for iters in (1, 2, 3):
+                got = mma_pair.pair_chain(w, v, u, iters)
+                again = mma_pair.pair_chain(w, v, u, iters)
+                ref = mma_pair.pair_chain_plain(w, v, u, iters)
+                scale = ref.float().abs().max().item()
+                row = {"d": d, "n": n, "rows": rows, "cluster": p.cluster,
+                       "rows_per_cta": p.rows_per_cta, "iters": iters,
+                       "max_abs_err": max_err(got, ref), "scale": scale, "rel_tol": rel,
+                       "same_bits_twice": torch.equal(got, again)}
+                checks.append(row)
+                if not (scale > 0 and row["same_bits_twice"] and row["max_abs_err"] <= rel * scale):
+                    raise AssertionError(f"mma_pair: {row}")
+            del w, v, u, got, again, ref
     w, v, u = probe.make_operands(512, probe.TK, 64, "cuda", seed=0)
     zero = {"kernel": mma_pair.first_zero_iteration(w, v, u, 64, chain=mma_pair.pair_chain),
             "plain": mma_pair.first_zero_iteration(w, v, u, 64)}
 
-    fill = 2 * 132 * mma_pair.ROW_TILE
     mma_pair.pair_chain.launches = 0
     rates = {}
-    for rows in (512, fill):
+    for rows in (512, FILL_ROWS):
         points, ratios = probe.run(rows, "cuda")
         for p in points:
             p["raw_share_of_989"] = p["raw_tflops"] / (PEAK_FLOPS["bfloat16"] / 1e12)
@@ -1220,23 +1249,41 @@ def phase_mma_pair(torch):
     torch.cuda.synchronize()
     launches = mma_pair.pair_chain.launches
 
+    # the rate at d 64 on the filled card on operands that keep their scale
+    steady = probe.bench("pair d=64 (steady operands)", 64, probe.TK, FILL_ROWS, "cuda", None,
+                         steady=True)
+    ws, vs, us = probe.make_operands(FILL_ROWS, probe.TK, 64, "cuda", steady=True)
+    w_end = mma_pair.pair_chain(ws, vs, us, steady["iters"])
+    steady.update(raw_share_of_989=steady["raw_tflops"] / (PEAK_FLOPS["bfloat16"] / 1e12),
+                  zero_operand_raw_tflops=rates[FILL_ROWS]["points"][0]["raw_tflops"],
+                  input_scale=ws.float().abs().max().item(),
+                  output_scale=w_end.float().abs().max().item(),
+                  output_finite=bool(torch.isfinite(w_end.float()).all().item()))
+
     p64 = rates[512]["points"][0]
     iters, n = p64["iters"], p64["n"]
     w, v, u = probe.make_operands(512, n, 64, "cuda", seed=0)
+    graph_ms, graph_out = _graph_chain_ms(torch, w, v, u, iters)
     entry = {"max_abs_err": max(c["max_abs_err"] for c in checks if c["d"] == 64),
-             "ms": p64["ms"], "rows": 512, "iters": iters,
+             "ms": p64["ms"], "us_per_iter": p64["us_per_iter"], "rows": 512, "iters": iters,
+             "plan": p64["plan"],
              "plain_ms": time_ms(lambda: mma_pair.pair_chain_plain(w, v, u, iters), 1, 1),
              "library_ms": time_ms(lambda: _addmm_chain(torch, w, v, u, iters), 1, 1),
              "library_call": "2 x iters torch.addmm (alpha 0.01, beta 0): no single call",
+             "library_graph_ms": graph_ms,
+             "library_graph_equals_eager": torch.equal(graph_out,
+                                                       _addmm_chain(torch, w, v, u, iters)),
              "launches": launches}
     entry["bound_ms"], entry["bound_by"] = bound(
         mma_pair.pair_flops(512, n, 64, iters), 2.0 * (2 * 512 * n + 2 * n * 64), "bfloat16")
     emit({"phase": "mma_pair", "checks": checks, "first_all_zero_iteration": zero,
           "note": "past the first all-zero iteration every operand is zero: the rates are "
                   "readings on zero operands", "rates": {str(r): x for r, x in rates.items()},
-          "d64_rows512": entry})
+          "steady_d64_filled": steady, "d64_rows512": entry})
     if zero["kernel"] is None or zero["plain"] is None:
         raise AssertionError(f"mma_pair: the operands did not decay to zero: {zero}")
+    if not (steady["output_finite"] and steady["output_scale"] > 0):
+        raise AssertionError(f"mma_pair: the steady operands did not keep their scale: {steady}")
     return entry
 
 
@@ -1267,7 +1314,7 @@ def main() -> int:
           "libraries": [os.path.relpath(p, ROOT) for p in libs],
           "ptxas": {n: ptxas_report(cuda_build.build_log(n))
                     for n in ("flash64_fwd", "flash64_bwd", "flash64_fwd_probe",
-                              "decode_attn")}})
+                              "decode_attn", "mma_pair")}})
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # -- 2, 3. kernels against their plain versions ---------------------------

@@ -191,6 +191,34 @@ def test_wgmma_width_matches_matmul(gen, n, mode, ksteps):
     assert (d - ref).abs().max().item() <= 1e-5 * max(ref.abs().max().item(), 1.0)
 
 
+@pytest.mark.parametrize("form,width", [("ss_k", 64), ("ss_k", 128), ("ss_k", 256),
+                                        ("rs_t", 64), ("rs_t", 128), ("rs_t", 256)])
+def test_wgmma_pair_form_matches_matmul(gen, form, width):
+    """The matmul-pair kernel's forms (``wf_wgmma_pair_check``): ``ss_k`` is
+    D (64 x 64) = A (64 x K) B (K x 64) with A K-major over K / 64 tiles and
+    B MN-major over K rows (the kernel's o @ u chunk, K = d); ``rs_t`` is D
+    (64 x N) = A (64 x 64, registers) B (64 x N) with B MN-major over N / 64
+    tiles, LBO apart (the kernel's w chunk @ v chunk, N = d). Exact products,
+    so only the fp32 sum order differs from torch.matmul's."""
+    import ctypes
+
+    from whisper_flamingo_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("wgmma_check").wf_wgmma_pair_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    k, n = (width, 64) if form == "ss_k" else (64, width)
+    a = torch.randn(64, k, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(k, n, generator=gen, device="cuda").bfloat16()
+    d = torch.full((64, n), float("nan"), device="cuda")
+    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), {"ss_k": 0, "rs_t": 1}[form], width,
+             cuda_build.stream_ptr(a))
+    cuda_build.check(err, "wgmma_pair_check")
+    torch.cuda.synchronize()
+    ref = a.float() @ b.float()
+    assert (d - ref).abs().max().item() <= 1e-5 * max(ref.abs().max().item(), 1.0)
+
+
 # every edge of the bf16 kernels' tiles: 64-row boxes and 128-row blocks
 EDGE_T = [1, 63, 64, 65, 127, 128, 129, 300, 1500]
 
@@ -550,21 +578,41 @@ def test_flash64_variant_kernels_refuse_what_they_cannot_take(gen):
 
 
 @pytest.mark.parametrize("iters", [1, 2, 3])
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_mma_pair_kernel_matches_plain(gen, d, iters):
-    """The pair loop at the probe's scales and n 1536, 256 rows (two
-    blocks); reruns give the same bits."""
+@pytest.mark.parametrize("d,n", [(64, 1536), (128, 1536), (256, 1536), (128, 3072)])
+def test_mma_pair_kernel_matches_plain(gen, d, n, iters):
+    """The pair loop at the probe's scales and four points, at 256 rows and
+    at 33,792 (the plan's two launches of each point: 64 rows a CTA, and as
+    many warpgroups a CTA as fit); reruns give the same bits."""
     from whisper_flamingo_tpu_torch.ops import mma_pair
 
-    w = torch.randn(256, 1536, generator=gen, device="cuda").bfloat16()
-    v = (torch.randn(1536, d, generator=gen, device="cuda") * 0.1).bfloat16()
-    u = (torch.randn(d, 1536, generator=gen, device="cuda") * 0.1).bfloat16()
-    before = mma_pair.pair_chain.launches
-    out, again = mma_pair.pair_chain(w, v, u, iters), mma_pair.pair_chain(w, v, u, iters)
-    assert mma_pair.pair_chain.launches == before + 2 and torch.equal(out, again)
-    ref = mma_pair.pair_chain_plain(w, v, u, iters)
-    scale = ref.float().abs().max().item()
-    assert scale > 0 and (out.float() - ref.float()).abs().max().item() <= PROBE_REL * scale
+    for rows in (256, 2 * 132 * 128):
+        w = torch.randn(rows, n, generator=gen, device="cuda").bfloat16()
+        v = (torch.randn(n, d, generator=gen, device="cuda") * 0.1).bfloat16()
+        u = (torch.randn(d, n, generator=gen, device="cuda") * 0.1).bfloat16()
+        ref = mma_pair.pair_chain_plain(w, v, u, iters)
+        scale = ref.float().abs().max().item()
+        before = mma_pair.pair_chain.launches
+        out, again = mma_pair.pair_chain(w, v, u, iters), mma_pair.pair_chain(w, v, u, iters)
+        p = mma_pair.plan(rows, n, d)
+        assert mma_pair.pair_chain.launches == before + 2 and torch.equal(out, again), p
+        assert scale > 0 and (out.float() - ref.float()).abs().max().item() <= PROBE_REL * scale, p
+
+
+def test_mma_pair_kernel_takes_half_chunks_and_odd_row_blocks(gen):
+    """n / C of 160 or 96 (a last chunk of 32 columns, zero-padded), and
+    8,512 rows (133 blocks of 64) in CTAs of two or four warpgroups (the
+    last CTA's later row blocks idle), each in the plan's own launch."""
+    from whisper_flamingo_tpu_torch.ops import mma_pair
+
+    for d, n, rows in ((64, 1280, 192), (64, 1536, 8512), (128, 1280, 8512), (256, 1536, 128)):
+        w = torch.randn(rows, n, generator=gen, device="cuda").bfloat16()
+        v = (torch.randn(n, d, generator=gen, device="cuda") * 0.1).bfloat16()
+        u = (torch.randn(d, n, generator=gen, device="cuda") * 0.1).bfloat16()
+        ref = mma_pair.pair_chain_plain(w, v, u, 2)
+        out = mma_pair.pair_chain(w, v, u, 2)
+        scale = ref.float().abs().max().item()
+        p = mma_pair.plan(rows, n, d)
+        assert (out.float() - ref.float()).abs().max().item() <= PROBE_REL * scale, (d, n, rows, p)
 
 
 def test_mma_pair_kernel_refuses_what_it_cannot_take(gen):
@@ -573,11 +621,13 @@ def test_mma_pair_kernel_refuses_what_it_cannot_take(gen):
     w = torch.randn(128, 128, generator=gen, device="cuda").bfloat16()
     v = torch.randn(128, 64, generator=gen, device="cuda").bfloat16()
     u = torch.randn(64, 128, generator=gen, device="cuda").bfloat16()
-    with pytest.raises(ValueError):  # rows not a multiple of 128
-        mma_pair.pair_chain(w[:64].contiguous(), v, u, 1)
+    with pytest.raises(ValueError):  # rows not a multiple of 64
+        mma_pair.pair_chain(w[:32].contiguous(), v, u, 1)
     with pytest.raises(ValueError):  # d 96
         mma_pair.pair_chain(w, v.repeat(1, 2)[:, :96].contiguous(), u.repeat(2, 1)[:96].contiguous(), 1)
     with pytest.raises(TypeError):  # fp32
         mma_pair.pair_chain(w.float(), v.float(), u.float(), 1)
     with pytest.raises(ValueError):  # iters 0
         mma_pair.pair_chain(w, v, u, 0)
+    with pytest.raises(ValueError):  # n 96: no cluster leaves a multiple of 32 columns
+        mma_pair.pair_chain(w[:, :96].contiguous(), v[:96].contiguous(), u[:, :96].contiguous(), 1)

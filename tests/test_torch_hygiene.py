@@ -34,6 +34,7 @@ import whisper_flamingo_tpu_torch.tools.flash64_fwd_probe
 import whisper_flamingo_tpu_torch.tools.packed_probe2
 import whisper_flamingo_tpu_torch.tools.flash64_ab
 import whisper_flamingo_tpu_torch.tools.dtw_mlp_ab
+import whisper_flamingo_tpu_torch.tools.mma_pair_ab
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")]
@@ -70,7 +71,8 @@ def test_sources_name_no_jax_module():
                 "training/steps", "training/trainer", "recipes/common", "recipes/whisper_ft",
                 "serving", "speculative", "ops/quant", "ops/decode_mlp",
                 "ops/flash64_variants", "ops/mma_pair", "tools/flash64_fwd_probe",
-                "tools/packed_probe2", "tools/flash64_ab", "tools/dtw_mlp_ab"):
+                "tools/packed_probe2", "tools/flash64_ab", "tools/dtw_mlp_ab",
+                "tools/mma_pair_ab"):
         assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
     for path in _sources():
         with open(path) as fh:

@@ -13,8 +13,11 @@
   ``tools/packed_probe2.py``'s ``make_kernel(d, 1536, iters)`` in interpret
   mode, d 64 and 128, iters 1-3, at the same 2^-7 * max|ref| (each product
   sums in fp32 in another order before its bf16 rounding).
-- The decay of the pair probe's operands, the wrappers' device rule and
-  the two command-line probes with ``--device cpu``.
+- The decay of the pair probe's operands, the steady operands that do not
+  decay, the pair kernel's launch plan (``mma_pair.plan``) at the probe's
+  four points and what it refuses, the wrapper's refusals (raised before
+  anything is built), the wrappers' device rule and the two command-line
+  probes with ``--device cpu``.
 """
 
 import functools
@@ -206,3 +209,88 @@ def test_packed_probe2_cli_on_cpu(capsys):
     assert [int(ln.split("iters=")[1].split(":")[0]) for ln in lines[1:5]] == [4, 2, 1, 1]
     assert "d=64 rate / d=128 rate:" in out and "packed useful / d=64 raw:" in out
     assert "w is all zero after" in lines[-1]
+
+
+FILL_ROWS = 2 * 132 * 128  # phase 16's row count that fills the card
+
+
+@pytest.mark.parametrize("rows", [512, FILL_ROWS])
+@pytest.mark.parametrize("point", [p[0] for p in packed_probe2.POINTS])
+def test_pair_plan_fits_each_probe_point(point, rows):
+    """Each of the probe's four points has a launch at 512 and 33,792 rows:
+    one the kernel is built for, whose CTA fits 227 KB of shared memory,
+    whose clusters split n into slices of whole 32-column halves, and which
+    fills the card once the rows do (as many warpgroups a CTA as fit) or,
+    below that, spreads the rows over clusters of at least 8 CTAs, one CTA
+    an SM at most."""
+    _, d, n, _, _ = next(p for p in packed_probe2.POINTS if p[0] == point)
+    p = mma_pair.plan(rows, n, d)
+    assert (p.cluster, p.rows_per_cta) in mma_pair.LAUNCHES[d]
+    assert p.smem == mma_pair.smem_bytes(n, d, p.cluster, p.rows_per_cta) <= 227 * 1024
+    assert n % p.cluster == 0 and (n // p.cluster) % 32 == 0
+    assert p.ctas == -(-rows // p.rows_per_cta) * p.cluster
+    if rows == FILL_ROWS:
+        assert p.ctas >= mma_pair.SMS and p.rows_per_cta == {64: 256, 128: 128, 256: 64}[d]
+    else:
+        assert p.ctas <= mma_pair.SMS and p.cluster >= 8
+
+
+@pytest.mark.parametrize("rows,n,d", [
+    (32, 1536, 64),     # rows not a multiple of 64
+    (0, 1536, 64),      # no rows
+    (512, 1536, 96),    # d 96
+    (512, 96, 64),      # no cluster leaves whole 32-column halves
+    (512, 768, 256),    # d 256 takes clusters of 16 only: 48 columns a CTA
+    (512, 3072, 256),   # d 256's slices of the packed n fit no CTA
+    (512, 6144, 128),   # u and v at d 128 fit no cluster of 16
+    (512, 16384, 64),   # nor at d 64
+])
+def test_pair_plan_refuses_what_the_kernel_cannot_take(rows, n, d):
+    with pytest.raises(ValueError):
+        mma_pair.plan(rows, n, d)
+
+
+def test_pair_chain_refusals_raise_before_any_build(monkeypatch):
+    """The operand checks run before the kernel library is built or loaded:
+    each refusal raises its own error and nothing reaches ``cuda_build``."""
+    from whisper_flamingo_tpu_torch.ops import cuda_build
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    w, v, u = (torch.from_numpy(x).bfloat16() for x in _pair_operands(64, 7, rows=128, n=256))
+    p = mma_pair.check_operands(w, v, u, 1)
+    assert p == mma_pair.plan(128, 256, 64)
+    with pytest.raises(ValueError, match="do not chain"):
+        mma_pair.check_operands(w, v[:128].contiguous(), u, 1)
+    with pytest.raises(TypeError):
+        mma_pair.check_operands(w.float(), v.float(), u.float(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        mma_pair.check_operands(w.t().contiguous().t(), v, u, 1)
+    with pytest.raises(ValueError, match="aligned"):
+        mma_pair.check_operands(torch.cat([w.flatten(), w.flatten()[:1]])[1:].view(128, 256),
+                                v, u, 1)
+    with pytest.raises(ValueError, match="iters"):
+        mma_pair.check_operands(w, v, u, 0)
+    with pytest.raises(ValueError, match="rows"):
+        mma_pair.check_operands(w[:32], v, u, 1)
+    with pytest.raises(ValueError, match="d in"):
+        mma_pair.check_operands(w, v.repeat(1, 2)[:, :96].contiguous(),
+                                u.repeat(2, 1)[:96].contiguous(), 1)
+    with pytest.raises(ValueError, match="no launch"):
+        mma_pair.check_operands(w[:, :96].contiguous(), v[:96].contiguous(),
+                                u[:, :96].contiguous(), 1)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_steady_operands_do_not_decay(d):
+    """The steady operands keep the plain loop's output non-zero and within
+    10x of its starting scale at every one of 32 iterations (128 rows, n
+    256), where the probe's own operands are zero after about a dozen."""
+    w, v, u = packed_probe2.make_operands(128, 256, d, "cpu", seed=3, steady=True)
+    start = w.float().abs().max().item()
+    for _ in range(32):
+        w = mma_pair.pair_chain_plain(w, v, u, 1)
+        scale = w.float().abs().max().item()
+        assert torch.isfinite(w.float()).all() and start / 10 <= scale <= 10 * start

@@ -129,47 +129,6 @@ __host__ __device__ constexpr int pass_smem(bool int8, int kbs, int nt) {
   return 1024 + kbs * MT * KB * 2 + b_bytes(aliased(kbs, nt), kbs, nt) + (int8 ? kbs * MT * KB : 0);
 }
 
-__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-// Two floats into another CTA's shared memory (cluster addresses), counted
-// as 8 bytes of transactions on that CTA's barrier.
-__device__ __forceinline__ void st_async_v2(uint32_t addr, float a, float b, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
-          addr),
-      "f"(a), "f"(b), "r"(bar)
-      : "memory");
-}
-
-// The cluster barrier in two halves: arrive (releasing this thread's
-// writes) early, wait (acquiring the others') where it is needed.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Wait for the phase of parity `parity`, acquiring at cluster scope what
-// the transactions counted on it wrote.
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = hopper::smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // One pass: out[n][m] = epilogue(sum_k a_in[n][k] w[m][k]) for the CTA's 64
 // rows m of w (read through `wmap`), over all rows n. FC2 picks fc2's
 // epilogue, else fc1's. The cluster (CL CTAs) splits k: CTA r takes
@@ -259,7 +218,7 @@ __global__ void __launch_bounds__(NT) mlp_pass_kernel(
       }
     }
   };
-  if (!ALIAS) cluster_arrive();  // this CTA's barriers are set
+  if (!ALIAS) hopper::cluster_arrive();  // this CTA's barriers are set
   load_b(0);
   convert_w();
 
@@ -290,10 +249,10 @@ __global__ void __launch_bounds__(NT) mlp_pass_kernel(
     // every CTA's barriers are set (and, aliased, its products read its
     // activation tile no more: the partial sums land there)
     if (ALIAS) {
-      cluster_arrive();
-      cluster_wait();
+      hopper::cluster_arrive();
+      hopper::cluster_wait();
     } else if (t == 0) {
-      cluster_wait();
+      hopper::cluster_wait();
     }
     // this CTA's partial sums to their rows' owners: row m goes to CTA
     // m / rows_per, slot `rank`, [m % rows_per][n]
@@ -301,13 +260,15 @@ __global__ void __launch_bounds__(NT) mlp_pass_kernel(
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int m = 16 * warp + g + 8 * r, owner = m / rows_per;
-      const uint32_t dst = mapa(red_local, owner) + ((rank * rows_per + m % rows_per) * pitch) * 4;
-      const uint32_t bar = mapa(bar_local, owner);
+      const uint32_t dst =
+          hopper::mapa(red_local, owner) + ((rank * rows_per + m % rows_per) * pitch) * 4;
+      const uint32_t bar = hopper::mapa(bar_local, owner);
 #pragma unroll
       for (int j = 0; j < N / 8; ++j)
-        st_async_v2(dst + (8 * j + 2 * q) * 4, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1], bar);
+        hopper::st_async_v2(dst + (8 * j + 2 * q) * 4, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1],
+                            bar);
     }
-    mbar_wait_cluster(&red_bar, t & 1);
+    hopper::mbar_wait_cluster(&red_bar, t & 1);
     // rows rank * rows_per .. + rows_per - 1 of the slice: the slots added in
     // rank order, then the epilogue; four elements a thread at a time, so
     // that their loads and their GELUs overlap

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) primitives for the port's tensor-core kernels, in inline
 // PTX: TMA tile loads (2-D and 4-D) into shared memory under mbarriers,
 // wgmma products in the SS and RS forms with the 128-byte-swizzle
-// shared-memory descriptor (SS at N = 8, 32, 64, 128; RS at 64, and an RS
-// m64n8 form on an unswizzled B), an exact int8 -> bf16 conversion,
-// the async-proxy fence and setmaxnreg; and, on the host, the encoding of
-// the tensor maps that the TMA loads read (through the runtime's driver
-// entry point, so a library built on this header links no libcuda).
+// shared-memory descriptor (SS at N = 8, 32, 64, 128; RS at 64, 128 and
+// 256, and an RS m64n8 form on an unswizzled B), an exact int8 -> bf16
+// conversion, the async-proxy fence and setmaxnreg; the cluster's
+// distributed shared memory (mapa, st.async counted on a peer's mbarrier,
+// the split cluster barrier); and, on the host, the encoding of the tensor
+// maps that the TMA loads read (through the runtime's driver entry point,
+// so a library built on this header links no libcuda).
 //
 // Conventions the kernels rely on (csrc/flash64_fwd_frame.cuh, csrc/flash64_bwd.cu):
 //   - Every tile is rows of 64 bf16 (128 bytes) written by TMA with
@@ -17,9 +19,10 @@
 //     function of the address, so the advance stays inside the atom).
 //   - MN-major B (the contraction runs across rows, as V in O = P V):
 //     transpose bit set, SBO 1024 (8 rows of the contraction), and the k-th
-//     16-row slice starts 2048 bytes further. N is 64, one 128-byte span,
-//     so LBO (the stride between 64-wide spans) is never taken; it is set
-//     to 1024 as well.
+//     16-row slice starts 2048 bytes further. At N = 64, one 128-byte span,
+//     LBO (the stride between 64-wide spans) is never taken and is set to
+//     1024 as well; at N = 128 and 256 (the RS forms of csrc/mma_pair.cu)
+//     the N / 64 spans are tiles of their own, LBO apart.
 //   - The fp32 accumulator of m64nNk16 is, per warp w of the warpgroup,
 //     mma.sync's m16n8 C layout repeated over N / 8 column tiles: with
 //     g = lane / 4 and q = lane % 4, d[4j + 2r + c] is row 16w + g + 8r,
@@ -103,6 +106,70 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // async-proxy accesses (wgmma operand reads, TMA) of the same bytes.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Clusters: distributed shared memory
+// ---------------------------------------------------------------------------
+
+// The address, in the cluster's shared window, of the variable at `addr`
+// (a shared::cta address) in the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Two floats into another CTA's shared memory (cluster addresses), counted
+// as 8 bytes of transactions on that CTA's barrier.
+__device__ __forceinline__ void st_async_v2(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+// The same for two 32-bit words (four bf16).
+__device__ __forceinline__ void st_async_v2_b32(uint32_t addr, uint32_t a, uint32_t b,
+                                                uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "r"(a), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// The cluster barrier in two halves: arrive (releasing this thread's
+// writes) early, wait (acquiring the others') where it is needed. Every
+// thread of every CTA of the cluster takes part.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Wait for the phase of parity `parity`, acquiring at cluster scope what
+// the transactions counted on it wrote (HOPPER_HANG_TRAP as in mbar_wait).
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+#ifdef HOPPER_HANG_TRAP
+  unsigned long long polls = 0;
+#endif
+  do {
+#ifdef HOPPER_HANG_TRAP
+    if (++polls == (unsigned long long)(HOPPER_HANG_TRAP)) __trap();
+#endif
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // Named barriers 1..15 (0 is __syncthreads) over `count` threads.
@@ -313,6 +380,74 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The same RS product at N = 128 and 256 (the matmul-pair kernel,
+// csrc/mma_pair.cu, whose o accumulator is d wide): an MN-major B spans
+// N / 64 128-byte-wide tiles, LBO apart (desc_sw128(tile, LBO, 1024)).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// D(64xN) (+)= A(64x16, registers) B(16xN) for N in {64, 128, 256}.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_rs_n64<TRANS_B>(d, a, b, scale_d);
+  else if constexpr (N == 128) wgmma_rs_n128<TRANS_B>(d, a, b, scale_d);
+  else wgmma_rs_n256<TRANS_B>(d, a, b, scale_d);
 }
 
 // D(64x8, fp32) (+)= A(64x16, bf16, registers) B(16x8, bf16, shared, K-major

@@ -9,8 +9,11 @@
 // the unswizzled core-matrix layout that desc_plain describes; and the
 // decode-MLP kernel's SS widths (csrc/decode_mlp.cu) at N = 8, 32, 64 and
 // 128 against a K-major swizzled B, with A by TMA or converted from int8
-// into the swizzled layout as that kernel converts its weights. It is on no
-// system path.
+// into the swizzled layout as that kernel converts its weights; and the two
+// forms of the matmul-pair kernel (csrc/mma_pair.cu): SS with K = d up to
+// 256 (A K-major over d / 64 tiles, B MN-major over d rows) and RS at N = 64,
+// 128 and 256 (B MN-major over N / 64 tiles, LBO apart). It is on no system
+// path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -193,6 +196,104 @@ int launch_width(const CUtensorMap& am, const CUtensorMap& bm, const void* a8, f
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// The matmul-pair kernel's SS form: D (64 x 64) = A (64 x K) B (K x 64), A
+// [m][k] by TMA as K / 64 K-major tiles, B [k][n] by TMA as one MN-major
+// tile of K rows, as the kernel holds o and a u chunk.
+template <int K>
+__global__ void __launch_bounds__(128) pair_ss_check_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+    float* __restrict__ d) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* as = align1024(smem_raw);
+  uint8_t* bs = as + K * 128;
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    fence_barrier_init();
+    mbar_arrive_expect_tx(&bar, 2 * K * 128);
+    for (int e = 0; e < K / 64; ++e) tma_load_2d(as + e * 8192, &amap, &bar, e * 64, 0);
+    tma_load_2d(bs, &bmap, &bar, 0, 0);
+  }
+  __syncthreads();
+  mbar_wait(&bar, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4, r0 = warp * 16 + g;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_ss_n64<1>(acc, desc_k_major(as + (kk / 4) * 8192) + 2 * (kk % 4),
+                    desc_sw128(bs, 1024, 1024) + 128 * kk, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) d[(r0 + 8 * r) * 64 + 8 * j + 2 * tq + c] = acc[4 * j + 2 * r + c];
+}
+
+// The matmul-pair kernel's RS form: D (64 x N) = A (64 x 64, fragments from
+// global memory) B (64 x N), B [k][n] by TMA as N / 64 MN-major tiles of 64
+// rows, LBO 8192 apart, as the kernel holds a v chunk.
+template <int N>
+__global__ void __launch_bounds__(128) pair_rs_check_kernel(
+    const __grid_constant__ CUtensorMap bmap, const bf16* __restrict__ a, float* __restrict__ d) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* bs = align1024(smem_raw);
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    fence_barrier_init();
+    mbar_arrive_expect_tx(&bar, N * 128);
+    for (int e = 0; e < N / 64; ++e) tma_load_2d(bs + e * 8192, &bmap, &bar, e * 64, 0);
+  }
+  __syncthreads();
+  mbar_wait(&bar, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4, r0 = warp * 16 + g;
+  uint32_t af[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = kk * 16 + 2 * tq;
+    af[kk][0] = *reinterpret_cast<const uint32_t*>(a + r0 * 64 + c);
+    af[kk][1] = *reinterpret_cast<const uint32_t*>(a + (r0 + 8) * 64 + c);
+    af[kk][2] = *reinterpret_cast<const uint32_t*>(a + r0 * 64 + c + 8);
+    af[kk][3] = *reinterpret_cast<const uint32_t*>(a + (r0 + 8) * 64 + c + 8);
+  }
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  fence_regs(af);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<N, 1>(acc, af[kk], desc_sw128(bs, 8192, 1024) + 128 * kk, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(af);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) d[(r0 + 8 * r) * N + 8 * j + 2 * tq + c] = acc[4 * j + 2 * r + c];
+}
+
+template <typename Kernel, typename... Args>
+int launch_pair_check(Kernel kernel, int smem, cudaStream_t s, Args... args) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<1, 128, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a, b, d contiguous on the card (see the kernel); n 64 or 128 (128 only
@@ -238,5 +339,38 @@ extern "C" int wf_wgmma_width_check(const void* a, const void* a8, const void* b
     case 64: return launch_width<64>(am, bm, a8, d, mode, ksteps, s);
     case 128: return launch_width<128>(am, bm, a8, d, mode, ksteps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The matmul-pair kernel's forms, d (64, 64) or (64, width) fp32 on the card.
+// form 0 (SS): a (64, width) and b (width, 64) bf16, width 64, 128 or 256.
+// form 1 (RS): a (64, 64) and b (64, width) bf16, width 64, 128 or 256.
+// Returns the launch's cudaGetLastError(), cudaErrorInvalidValue for
+// arguments it does not take, or hopper::kEncodeError + the CUresult.
+extern "C" int wf_wgmma_pair_check(const void* a, const void* b, float* d, int form, int width,
+                                   void* stream) {
+  if ((form != 0 && form != 1) || (width != 64 && width != 128 && width != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap am, bm;
+  if (form == 0) {
+    int err = encode_2d(&am, a, 2, 64, width, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!err) err = encode_2d(&bm, b, 2, width, 64, width, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err) return err;
+    const int smem = 1024 + 2 * width * 128;
+    switch (width) {
+      case 64: return launch_pair_check(pair_ss_check_kernel<64>, smem, s, am, bm, d);
+      case 128: return launch_pair_check(pair_ss_check_kernel<128>, smem, s, am, bm, d);
+      default: return launch_pair_check(pair_ss_check_kernel<256>, smem, s, am, bm, d);
+    }
+  }
+  const int err = encode_2d(&bm, b, 2, 64, width, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  const int smem = 1024 + width * 128;
+  const bf16* ap = static_cast<const bf16*>(a);
+  switch (width) {
+    case 64: return launch_pair_check(pair_rs_check_kernel<64>, smem, s, bm, ap, d);
+    case 128: return launch_pair_check(pair_rs_check_kernel<128>, smem, s, bm, ap, d);
+    default: return launch_pair_check(pair_rs_check_kernel<256>, smem, s, bm, ap, d);
   }
 }

@@ -10,18 +10,22 @@ w = bf16(0.01 (o @ u)) over w (rows, n) with v (n, d) and u (d, n), at the
 JAX probe's four points: d 64, 128 and 256 at n 1536, and the packed pair
 (d 128, n 3072, half of its work useful). It prints, as the JAX probe does,
 the ms per launch, the raw and useful TF/s, the d64 / d128 rate ratio and
-the packed useful rate over d64's; then the first iteration after which w
-is all zero (the probe's operands decay about 10^3-fold per iteration, so
-a long run is a rate on zero operands).
+the packed useful rate over d64's (on a full card at d >= 128 both
+ratios read the kernel's exchange of o's partial sums across its cluster
+rather than the tensor cores); then the first iteration after which w is
+all zero (the probe's operands decay about 10^3-fold per iteration, so a
+long run is a rate on zero operands).
 
 ``--rows`` is the number of rows of w (the JAX probe's 512, its q tile; a
-multiple of 128 on the card, where 512 rows fill 4 of the 132 SMs).
-``--iters`` is d64's iteration count (the other points take the JAX
-probe's proportions: 1/2, 1/4, 1/4); without it, each point's count is
-sized so that one launch takes about 20 ms. Launches are timed
-with CUDA events (one warm-up, the median of three). ``--device cpu`` runs
-the plain version at a few iterations with the host clock: a check of the
-program, not of a device.
+multiple of 64 on the card). ``--iters`` is d64's iteration count (the
+other points take the JAX probe's proportions: 1/2, 1/4, 1/4); without it,
+each point's count is sized so that one launch takes about 20 ms. Launches
+are timed with CUDA events (one warm-up, the median of three). On the card
+it then prints each point's launch plan (``ops/mma_pair.plan``: the
+cluster size C, the rows per CTA, the shared memory of a CTA and how many
+clusters the card holds at once) and its µs per iteration. ``--device
+cpu`` runs the plain version at a few iterations with the host clock: a
+check of the program, not of a device.
 """
 
 from __future__ import annotations
@@ -46,14 +50,26 @@ POINTS = (  # name, d, n, share of the work that is useful, JAX's iters (relativ
 )
 
 
-def make_operands(rows: int, n: int, d: int, device: str, seed: int = 0):
-    """w = N(0, 1) (rows, n), v = 0.1 N(0, 1) (n, d), u = 0.1 N(0, 1) (d, n),
-    bf16, from a numpy seed (the JAX probe's scales)."""
+def make_operands(rows: int, n: int, d: int, device: str, seed: int = 0, steady: bool = False):
+    """bf16 operands from a numpy seed. The JAX probe's scales: w = N(0, 1)
+    (rows, n), v = 0.1 N(0, 1) (n, d), u = 0.1 N(0, 1) (d, n), under which w
+    is all zero after about a dozen iterations. ``steady``: the same w, and
+    v = 100 Q, u = 100 R Q^T with Q (n, d) orthonormal columns and R (d, d)
+    orthogonal (QR of N(0, 1) matrices), so that o = bf16(0.01 w v) keeps
+    its scale (each iteration turns it by R) and w its scale after the
+    first iteration (sqrt(d / n) of the input's): the products run on
+    non-zero data at any iteration count."""
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((rows, n), dtype=np.float32)
-    v = rng.standard_normal((n, d), dtype=np.float32) * 0.1
-    u = rng.standard_normal((d, n), dtype=np.float32) * 0.1
-    return tuple(torch.from_numpy(x).to(device=device, dtype=torch.bfloat16) for x in (w, v, u))
+    if steady:
+        q = np.linalg.qr(rng.standard_normal((n, d)))[0]
+        r = np.linalg.qr(rng.standard_normal((d, d)))[0]
+        v, u = 100.0 * q, 100.0 * r @ q.T
+    else:
+        v = rng.standard_normal((n, d), dtype=np.float32) * 0.1
+        u = rng.standard_normal((d, n), dtype=np.float32) * 0.1
+    return tuple(torch.from_numpy(np.asarray(x, np.float32)).to(device=device, dtype=torch.bfloat16)
+                 for x in (w, v, u))
 
 
 def launch_ms(w, v, u, iters: int, repeats: int = 3) -> float:
@@ -84,16 +100,22 @@ def sized_iters(w, v, u, probe_iters: int = 64) -> int:
 
 
 def bench(name: str, d: int, n: int, rows: int, device: str, iters: Optional[int],
-          useful_frac: float = 1.0) -> Dict:
-    """One point: its ms per launch and raw / useful TF/s."""
-    w, v, u = make_operands(rows, n, d, device)
+          useful_frac: float = 1.0, steady: bool = False) -> Dict:
+    """One point: its ms per launch, µs per iteration and raw / useful TF/s;
+    on the card also its launch plan."""
+    w, v, u = make_operands(rows, n, d, device, steady=steady)
     if iters is None:
         iters = sized_iters(w, v, u)
     ms = launch_ms(w, v, u, iters)
     flops = mma_pair.pair_flops(rows, n, d, iters)
     raw = flops / (ms / 1e3) / 1e12
-    return {"name": name, "d": d, "n": n, "rows": rows, "iters": iters, "ms": ms,
-            "raw_tflops": raw, "useful_tflops": useful_frac * raw}
+    out = {"name": name, "d": d, "n": n, "rows": rows, "iters": iters, "ms": ms,
+           "us_per_iter": ms * 1e3 / iters, "raw_tflops": raw, "useful_tflops": useful_frac * raw}
+    if device == "cuda":
+        p = mma_pair.plan(rows, n, d)
+        out["plan"] = {**p._asdict(),
+                       "max_active_clusters": mma_pair.max_active_clusters(rows, n, d)}
+    return out
 
 
 def run(rows: int, device: str, iters: Optional[int] = None):
@@ -115,7 +137,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("packed_probe2: no CUDA device (pass --device cpu for the plain version)")
-    rows = args.rows or (512 if args.device == "cuda" else mma_pair.ROW_TILE)
+    rows = args.rows or (512 if args.device == "cuda" else 128)
     iters = args.iters if args.iters or args.device == "cuda" else 3
     where = (torch.cuda.get_device_name(0) if args.device == "cuda"
              else "cpu (plain version, host clock)")
@@ -130,6 +152,15 @@ def main(argv=None) -> int:
           "(1.0 => no depth deficit; 0.5 => half-rate claim confirmed)")
     print(f"packed useful / d=64 raw: {ratios['packed_useful_over_d64']:.2f} "
           "(>1 => packing beats padding; ~0.5 => cycle-equivalent, refuted)")
+    if args.device == "cuda":
+        print("note: at d >= 128 on a full card both ratios are limited by this kernel's cluster "
+              "exchange of o (1 / (n / C) bytes an operation), not by the tensor cores")
+    for p in points:
+        if "plan" in p:
+            pl = p["plan"]
+            print(f"{p['name']:28s} plan: C {pl['cluster']}, {pl['rows_per_cta']} rows a CTA, "
+                  f"{pl['smem']} B shared, {pl['max_active_clusters']} clusters at once; "
+                  f"{p['us_per_iter']:.3f} us an iteration")
     w, v, u = make_operands(rows, TK, 64, args.device)
     zero = mma_pair.first_zero_iteration(w, v, u, 64, chain=mma_pair.pair_chain)
     print(f"d=64: w is all zero after {zero} iterations: the rates above are on zero operands "
