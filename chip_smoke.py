@@ -139,6 +139,33 @@ each printing one JSON line:
     on the filled card the rate on steady operands that do not decay,
     beside the rate on the probe's (zero) operands.
 
+17. text_conditioner: the BERT conditioner at ``bert-base-multilingual-cased``'s
+    published widths (vocab 119,547, hidden 768, 12 layers, 12 heads,
+    intermediate 3,072, 512 positions; random weights from seed 0, fp32,
+    the byte tokenizer in place of the WordPiece one, which is not in the
+    repository) over 16 strings (b8 x 2 languages of the synthetic
+    translations): its last hidden state on the card against the same
+    module on the CPU within 1e-4 of the largest magnitude; ms per
+    ``encode_multi`` and its host share (1 - device busy / wall). Then
+    ``recipes.trans_asr`` in-process on ``configs/smoke/trans_asr.yaml``
+    at the shape of ``configs/audio-text/at_en-cmn_small_bert.yaml``
+    (``small``, one stream, bert_dim 768, b8 of 16 synthetic 30 s
+    utterances, bf16, 4 steps, validation every 2) with that conditioner
+    swapped in for ``build_conditioner``: every parameter outside the gated
+    group bit-equal before and after, the gated ones changed, finite
+    losses, 12 flash64 forward launches and no backward per step; ms per
+    step (median after the first, the profiled fourth left out), tokens/s,
+    the device idle share of the fourth step (its device-busy time from the
+    profiler against that median), the conditioner's share of steps 2 and 3
+    (its time in ``prepare_batch`` over that plus the step's) and peak
+    memory. Its model, gates opened to 1, is the checkpoint of
+    ``recipes.transkd_asr`` (2 steps, ``freeze_encoder``: the teacher
+    bit-equal after, the student without gated weights, finite losses, ms
+    per step) and of ``recipes.evaluate`` in decode mode: beam 15 and greedy
+    in bf16, then greedy in fp32 through the kernels and through the plain
+    versions with the same tokens; 12 decode-attention launches per
+    incremental step and 12 flash64 launches per batch; RTF and tokens/s.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
 throughout. Any failed phase raises, and the script exits non-zero.
@@ -1287,6 +1314,284 @@ def phase_mma_pair(torch):
     return entry
 
 
+# bert-base-multilingual-cased's published widths (its config.json)
+MBERT = dict(vocab_size=119547, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+             intermediate_size=3072, max_position_embeddings=512, type_vocab_size=2,
+             layer_norm_eps=1e-12)
+TEXT_OVERRIDES = ("model_name=small", "num_langs=1", "bert_dim=768", "batch_size=8",
+                  "synthetic_n=16", "synthetic_sec=30", "precision=16-mixed",
+                  "validate_every_n_batches=2", "log_every=1")
+
+
+def _text_conditioner(dims, device):
+    """The offline conditioner (byte tokenizer, max_length 512, buckets of
+    16) over a BERT of ``dims`` with random weights from seed 0."""
+    from whisper_flamingo_tpu_torch.models import bert
+
+    cond = bert.HFBertConditioner(pretrained=False, device=device)
+    cond.model = bert.BertModel(dims).init_weights(0).to(device).eval()
+    cond.tokenizer = bert._ByteTokenizer(dims.vocab_size)
+    cond.dim = dims.hidden_size
+    return cond
+
+
+def phase_text_conditioner(torch, device="cuda", mbert=MBERT, overrides=TEXT_OVERRIDES):
+    """17: the BERT conditioner at mBERT's widths, card vs CPU; the Trans-ASR
+    and TransKD recipes and the evaluate recipe with its ``xt``."""
+    from unittest.mock import patch
+
+    import numpy as np
+
+    from whisper_flamingo_tpu_torch import decoding
+    from whisper_flamingo_tpu_torch.data.dataset import SyntheticAsrSource
+    from whisper_flamingo_tpu_torch.models import bert
+    from whisper_flamingo_tpu_torch.ops import decode_attn, decode_mlp, flash64
+    from whisper_flamingo_tpu_torch.profiling import trace
+    from whisper_flamingo_tpu_torch.recipes import common, evaluate, trans_asr, transkd_asr
+    from whisper_flamingo_tpu_torch.training.checkpoints import save_torch_checkpoint
+    from whisper_flamingo_tpu_torch.training.optim import flamingo_trainable_mask
+
+    dims = bert.BertDims(**mbert)
+    out = {}
+
+    # (a) the conditioner users run: card against the same module on the CPU
+    cond = _text_conditioner(dims, device)
+    n_params = sum(p.numel() for p in cond.model.parameters())
+    src = SyntheticAsrSource(n=BATCH, seed=0, n_translations=2, min_sec=30, max_sec=30)
+    streams = [[src[i].translations[k] for i in range(BATCH)] for k in range(2)]
+    texts = streams[0] + streams[1]
+    ids, mask = cond.tokenize(texts)
+    cpu_model = bert.BertModel(dims).init_weights(0).eval()
+    with torch.no_grad():
+        ref = cpu_model(torch.from_numpy(ids), torch.from_numpy(mask))
+        got = cond.model(torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device))
+    del cpu_model
+    scale = ref.abs().max().item()
+    err = max_err(got.cpu(), ref)
+    encode_ms = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xt = cond.encode_multi(streams)
+        torch.cuda.synchronize()
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir) as prof:
+            cond.encode_multi(streams)
+            torch.cuda.synchronize()
+    busy_ms, kernel_launches = _device_busy(torch, prof)
+    ms = float(np.median(encode_ms[1:]))
+    out["conditioner"] = {
+        "widths": mbert, "params": n_params, "texts": len(texts), "tokens": list(ids.shape),
+        "xt": list(xt.shape), "max_abs_err_vs_cpu": err, "scale": scale, "rel_tol": 1e-4,
+        "ms_per_encode_multi": ms, "encode_multi_ms_all": encode_ms,
+        "device_busy_ms": busy_ms, "kernel_launches": kernel_launches,
+        "host_share": 1.0 - busy_ms / ms}
+    emit({"phase": "text_conditioner_mbert", **out["conditioner"]})
+    if not (err <= 1e-4 * scale and torch.isfinite(got).all().item()
+            and tuple(xt.shape[:2]) == (2, BATCH) and xt.shape[3] == dims.hidden_size):
+        raise AssertionError(f"conditioner on the card vs the CPU: {out['conditioner']}")
+
+    # time the conditioner inside the recipes' prepare_batch hook
+    cond_calls = []
+    encode_multi = cond.encode_multi
+
+    def timed_encode_multi(all_texts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = encode_multi(all_texts)
+        torch.cuda.synchronize()
+        cond_calls.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    cond.encode_multi = timed_encode_multi
+    built = []
+
+    def capture_build_model(cfg, **kw):
+        model = build_model(cfg, **kw)
+        built.append((model, {n: p.detach().clone() for n, p in model.named_parameters()}))
+        return model
+
+    build_model = common.build_model
+
+    def counted(make_step, steps, profile_at=None):
+        """A step factory whose steps time themselves, count the flash64
+        launches they make and (at ``profile_at``) run under the profiler."""
+        def factory(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def run(state, *args):
+                counters = (flash64.flash64_forward, flash64.flash64_backward)
+                before = [c.launches for c in counters] + [flash64.flash64_forward.lse_launches]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if len(steps) + 1 == profile_at:
+                    with tempfile.TemporaryDirectory() as log_dir:
+                        with trace(log_dir) as prof:
+                            res = step(state, *args)
+                            torch.cuda.synchronize()
+                    busy, _ = _device_busy(torch, prof)
+                else:
+                    res, busy = step(state, *args), None
+                torch.cuda.synchronize()
+                after = [c.launches for c in counters] + [flash64.flash64_forward.lse_launches]
+                steps.append({"ms": (time.perf_counter() - t0) * 1e3, "device_busy_ms": busy,
+                              "conditioner_ms": cond_calls[-1] if cond_calls else None,
+                              "tokens": int(np.prod(args[-1]["dec_input_ids"].shape)),
+                              "flash64": dict(zip(("fwd", "bwd", "fwd_lse"),
+                                                  (b - a for a, b in zip(before, after))))})
+                return res
+
+            return run
+
+        return factory
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def args(name, *extra):
+            return [os.path.join(ROOT, "configs", "smoke", "trans_asr.yaml"), *overrides,
+                    f"train_id={name}", f"log_output_dir={tmp}/logs",
+                    f"check_output_dir={tmp}/ckpt", *extra]
+
+        def losses(name):
+            with open(os.path.join(tmp, "logs", f"{name}.metrics.jsonl")) as f:
+                return [r["loss"] for r in map(json.loads, f) if "loss" in r]
+
+        # (b) Trans-ASR: 4 gated steps on small with the mBERT conditioner
+        steps = []
+        torch.cuda.reset_peak_memory_stats()
+        with (patch.object(common, "build_conditioner", lambda cfg: cond),
+              patch.object(common, "build_model", capture_build_model),
+              patch.object(trans_asr, "make_ce_train_step",
+                           counted(trans_asr.make_ce_train_step, steps, profile_at=4))):
+            state = trans_asr.main(args("trans_asr", "num_train_steps=4"))
+        peak = torch.cuda.max_memory_allocated()
+        model, before = built.pop()
+        trainable = flamingo_trainable_mask(model)
+        frozen_changed = [n for n, p in model.named_parameters()
+                          if not trainable[n] and not torch.equal(p, before[n].to(p.dtype))]
+        gated_unchanged = [n for n, p in model.named_parameters()
+                           if trainable[n] and torch.equal(p, before[n])]
+        loss = losses("trans_asr")
+        n_layer, text_layers = model.dims.n_audio_layer, model.dims.n_text_layer
+        timed = [s["ms"] for s in steps[1:] if s["device_busy_ms"] is None]
+        step_ms = float(np.median(timed))
+        prof_step = steps[3]
+        out["trans_asr"] = {
+            "steps": len(steps), "losses": loss, "ms_per_step": step_ms,
+            "step_ms_all": [s["ms"] for s in steps],
+            "tokens_per_s": steps[1]["tokens"] / (step_ms / 1e3),
+            # the profiler slows the step it traces: busy over the median
+            "profiled_step": {"ms": prof_step["ms"], "device_busy_ms": prof_step["device_busy_ms"],
+                              "idle_share_vs_unprofiled_step":
+                                  1.0 - prof_step["device_busy_ms"] / step_ms},
+            "conditioner_ms_per_step": [s["conditioner_ms"] for s in steps],
+            "conditioner_share": [s["conditioner_ms"] / (s["conditioner_ms"] + s["ms"])
+                                  for s in steps[1:3]],
+            "flash64_per_step": [s["flash64"] for s in steps], "peak_mem_gb": peak / 1e9,
+            "frozen_params_changed": frozen_changed, "gated_params_unchanged": gated_unchanged}
+        emit({"phase": "text_trans_asr_small_b8", **out["trans_asr"]})
+        want = {"fwd": n_layer, "bwd": 0, "fwd_lse": 0}
+        if (frozen_changed or gated_unchanged or len(loss) != 4 or not np.all(np.isfinite(loss))
+                or any(s["flash64"] != want for s in steps) or state.step != 4):
+            raise AssertionError(f"trans_asr: {out['trans_asr']}")
+        # the trained model with its gates opened to 1, for the decode below
+        with torch.no_grad():
+            for blk in state.model.decoder.blocks:
+                blk.ff_gate.fill_(1.0)
+                for sub in blk.gated_x_attn_layers:
+                    sub.attn_gate.fill_(1.0)
+        ckpt = os.path.join(tmp, "flamingo_small.pt")
+        save_torch_checkpoint(state.model, ckpt)
+        del state, model, before
+        torch.cuda.empty_cache()
+
+        # (c) TransKD: the frozen teacher, the student without gated weights
+        steps = []
+        with (patch.object(common, "build_conditioner", lambda cfg: cond),
+              patch.object(common, "build_model", capture_build_model),
+              patch.object(transkd_asr, "make_kd_train_step",
+                           counted(transkd_asr.make_kd_train_step, steps))):
+            state = transkd_asr.main(args("transkd", "num_train_steps=2", "freeze_encoder=1",
+                                          f"pt_ckpt={ckpt}"))
+        teacher, before = built.pop()
+        teacher_changed = [n for n, p in teacher.named_parameters()
+                           if not torch.equal(p, before[n].to(p.dtype))]
+        student_gated = [n for n, v in flamingo_trainable_mask(state.model, True).items() if v]
+        loss = losses("transkd")
+        out["transkd_asr"] = {"steps": len(steps), "losses": loss,
+                              "ms_per_step": float(np.median([s["ms"] for s in steps[1:]])),
+                              "step_ms_all": [s["ms"] for s in steps],
+                              "teacher_params_changed": teacher_changed,
+                              "student_gated_params": student_gated}
+        emit({"phase": "text_transkd_small_b8", **out["transkd_asr"]})
+        if teacher_changed or student_gated or len(loss) != 2 or not np.all(np.isfinite(loss)):
+            raise AssertionError(f"transkd_asr: {out['transkd_asr']}")
+        del state, teacher, before
+        torch.cuda.empty_cache()
+
+        # (d) evaluate, decode mode, with xt from the conditioner
+        decoded = []
+        steps_inc = [0]
+        decoder_apply = decoding.decoder_apply
+
+        def counting_decoder_apply(*a, **kw):
+            steps_inc[0] += kw.get("offset", 0) > 0
+            return decoder_apply(*a, **kw)
+
+        class RecordingTask(decoding.DecodingTask):
+            def run(self, mel, xt=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = super().run(mel, xt=xt)
+                torch.cuda.synchronize()
+                decoded.append({"s": time.perf_counter() - t0, "rows": len(res),
+                                "tokens": [list(r.tokens) for r in res]})
+                return res
+
+        def run_eval(*extra):
+            """One evaluate run; its tokens land in ``tokens[extra]``."""
+            decoded.clear()
+            steps_inc[0] = decode_attn.fused_step.launches = flash64.flash64_forward.launches = 0
+            with (patch.object(common, "build_conditioner", lambda cfg: cond),
+                  patch.object(evaluate, "DecodingTask", RecordingTask),
+                  patch.object(decoding, "decoder_apply", counting_decoder_apply)):
+                res = evaluate.main(args("eval", "mode=decode", f"pt_ckpt={ckpt}", *extra))
+            torch.cuda.synchronize()
+            n_tok = sum(len(t) for d in decoded for t in d["tokens"])
+            decode_s = sum(d["s"] for d in decoded)
+            tokens[extra] = [t for d in decoded for t in d["tokens"]]
+            return {**res, "batches": len(decoded), "rows": sum(d["rows"] for d in decoded),
+                    "decoded_tokens": n_tok,
+                    "decode_s": decode_s, "tokens_per_s": n_tok / decode_s,
+                    "incremental_steps": steps_inc[0],
+                    "launches": {"flash64": flash64.flash64_forward.launches,
+                                 "decode_attn": decode_attn.fused_step.launches}}
+
+        runs, tokens = {}, {}
+        for name, extra in (("beam15_bf16", ("beam_size=15",)), ("greedy_bf16", ()),
+                            ("greedy_fp32", ("precision=32",))):
+            r = runs[name] = run_eval(*extra)
+            if (r["launches"]["decode_attn"] != text_layers * r["incremental_steps"]
+                    or r["launches"]["flash64"] != n_layer * r["batches"]
+                    or not r["incremental_steps"] or not 0 < r["n_utts"] == r["rows"]):
+                raise AssertionError(f"evaluate {name}: {r}")
+        fp32_tokens = tokens[("precision=32",)]
+        restore = _plain_kernels(decode_attn, decode_mlp, flash64)
+        try:
+            runs["greedy_fp32_plain"] = run_eval("precision=32")
+        finally:
+            restore()
+        same = fp32_tokens == tokens[("precision=32",)]
+        out["evaluate"] = {**runs, "fp32_greedy_tokens_equal_plain": same}
+        emit({"phase": "text_evaluate_small", **out["evaluate"]})
+        if not same:
+            raise AssertionError("evaluate: fp32 greedy tokens through the kernels differ from "
+                                 "the plain versions'")
+    del cond
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1415,6 +1720,10 @@ def main() -> int:
     fv = phase_flash64_variants(torch, flash64)
     mp = phase_mma_pair(torch)
     mark("15-16")
+
+    # -- 17. the text conditioner and the text recipes -------------------------
+    phase_text_conditioner(torch)
+    mark("17")
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -504,6 +504,50 @@ def test_decode_mlp_kernel_refuses_what_it_cannot_take(gen):
         decode_mlp._launch(x.view(-1)[1:].view(-1)[:3 * 64].view(3, 64), w1, b1, w2, b2, s1, s2)
 
 
+# The builds of csrc/decode_mlp.cu the test runs: the shipped one, and with
+# the test's own flag HOPPER_HANG_TRAP, so that a barrier wait that never
+# completes faults instead of spinning.
+EARLY_FC2 = {"shipped": [], "trap": ["-DHOPPER_HANG_TRAP=268435456"]}
+
+
+@pytest.fixture(scope="module")
+def early_fc2_libs():
+    """The decode-MLP library in each of EARLY_FC2's builds."""
+    from whisper_flamingo_tpu_torch.ops import cuda_build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return {name: cuda_build.load("decode_mlp", flags) for name, flags in EARLY_FC2.items()}
+
+
+@pytest.mark.parametrize("variant", sorted(EARLY_FC2))
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_mlp_early_fc2_launch(gen, monkeypatch, early_fc2_libs, variant, int8):
+    """The reduced case of fc2's early launch (it once failed at the
+    128-row tile): at small's widths, bf16 x, 120 and 128 rows first, then
+    8, 32 and 1024 rows; every call after stale barriers are left in shared
+    memory, 20 calls a size, each the bits of the shipped build."""
+    import ctypes
+
+    from whisper_flamingo_tpu_torch.ops import cuda_build, decode_mlp
+
+    stale = cuda_build.load("wgmma_check").wf_stale_barriers
+    stale.argtypes, stale.restype = [ctypes.c_void_p], ctypes.c_int
+    libs = early_fc2_libs
+    w1, b1, w2, b2, s1, s2 = _mlp_weights(gen, 768, 3072, torch.bfloat16, int8)
+    for rows in (120, 128, 8, 32, 1024):
+        x = torch.randn(rows, 768, generator=gen, device="cuda").bfloat16()
+        want = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+        with monkeypatch.context() as m:
+            m.setattr(decode_mlp, "_CHECKED", {})  # handles from the variant's library
+            m.setattr(decode_mlp, "_lib", lambda: decode_mlp._bind(libs[variant]))
+            for _ in range(20):
+                cuda_build.check(stale(cuda_build.stream_ptr(x)), "stale barriers")
+                got = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (variant, int8, rows)
+
+
 def test_debug_int8_decode_kernel_tokens_equal_plain(gen, monkeypatch):
     """fp32 int8 greedy with the decode-MLP kernel on, at debug widths with
     d_head 64: tokens through the kernels equal the plain versions'."""

@@ -35,16 +35,32 @@ import whisper_flamingo_tpu_torch.tools.packed_probe2
 import whisper_flamingo_tpu_torch.tools.flash64_ab
 import whisper_flamingo_tpu_torch.tools.dtw_mlp_ab
 import whisper_flamingo_tpu_torch.tools.mma_pair_ab
+import whisper_flamingo_tpu_torch.models.bert
+import whisper_flamingo_tpu_torch.recipes.trans_asr, whisper_flamingo_tpu_torch.recipes.transkd_asr
+import whisper_flamingo_tpu_torch.recipes.distil_prompt, whisper_flamingo_tpu_torch.recipes.evaluate
+import whisper_flamingo_tpu_torch.recipes.generate_pseudo_labels
+import whisper_flamingo_tpu_torch.recipes.decode_matrix
+import whisper_flamingo_tpu_torch.recipes.keyword_stats
+from whisper_flamingo_tpu_torch.config import TrainConfig
+from whisper_flamingo_tpu_torch.recipes.common import build_conditioner
+# the offline conditioner (no HF cache: HF_HOME is an empty directory)
+cond = build_conditioner(TrainConfig(device="cpu", bert_dim=96,
+                                     extras={"bert_pretrained": False}))
+assert cond.encode(["hello"]).shape == (1, 16, 96)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
-       or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")]
+       or m == "whisper_flamingo_tpu" or m.startswith("whisper_flamingo_tpu.")
+       or m == "transformers" or m.startswith("transformers.")]
 print(bad)
 sys.exit(1 if bad else 0)
 """
 
 
-def test_import_loads_no_jax_and_no_jax_package():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+def test_import_loads_no_jax_and_no_jax_package(tmp_path):
+    """Nor ``transformers``: importing the port and building the offline
+    conditioner leave it out."""
+    env = dict(os.environ, PYTHONPATH=ROOT, HF_HOME=str(tmp_path))
+    env.pop("HF_HUB_CACHE", None)
     proc = subprocess.run(
         [sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120,
@@ -72,7 +88,10 @@ def test_sources_name_no_jax_module():
                 "serving", "speculative", "ops/quant", "ops/decode_mlp",
                 "ops/flash64_variants", "ops/mma_pair", "tools/flash64_fwd_probe",
                 "tools/packed_probe2", "tools/flash64_ab", "tools/dtw_mlp_ab",
-                "tools/mma_pair_ab"):
+                "tools/mma_pair_ab", "models/bert", "recipes/trans_asr",
+                "recipes/transkd_asr", "recipes/distil_prompt", "recipes/evaluate",
+                "recipes/generate_pseudo_labels", "recipes/decode_matrix",
+                "recipes/keyword_stats"):
         assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
     for path in _sources():
         with open(path) as fh:
@@ -101,6 +120,38 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     model = wt.load_model("debug", device="cpu")
     assert model.device.type == "cpu"
     assert wt.log_mel_spectrogram(np.zeros(16000, np.float32), device="cpu").shape == (80, 100)
+
+
+# the text recipes with the smoke config each reads (keyword_stats reads no
+# model and needs no device)
+TEXT_RECIPES = [("trans_asr", "trans_asr"), ("transkd_asr", "transkd"),
+                ("distil_prompt", "distil_prompt"), ("evaluate", "trans_asr"),
+                ("generate_pseudo_labels", "trans_asr"), ("decode_matrix", "trans_asr")]
+
+
+@pytest.mark.parametrize("name,config", TEXT_RECIPES, ids=[n for n, _ in TEXT_RECIPES])
+def test_text_recipes_need_a_device(monkeypatch, tmp_path, name, config):
+    """With no card the text recipes raise unless the config or an
+    override names the CPU (their CPU runs: tests/test_torch_recipes.py)."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"whisper_flamingo_tpu_torch.recipes.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([os.path.join(ROOT, "configs", "smoke", f"{config}.yaml"),
+                  f"log_output_dir={tmp_path}", f"check_output_dir={tmp_path}",
+                  f"out={tmp_path}/out"])
+
+
+def test_conditioners_need_a_device(monkeypatch):
+    from whisper_flamingo_tpu_torch.models import bert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bert.HFBertConditioner(pretrained=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bert.PrecomputedConditioner({}, 16)
+    assert bert.HFBertConditioner(pretrained=False, device="cpu").device.type == "cpu"
 
 
 def test_kernel_wrappers_raise_on_a_device_without_a_kernel():
@@ -164,7 +215,8 @@ def test_training_modules_have_no_device_fallback():
 
     assert TrainConfig().device == "cuda"
     for rel in ("ops/flash64.py", "training/steps.py", "training/optim.py",
-                "training/trainer.py", "recipes/whisper_ft.py"):
+                "training/trainer.py", "recipes/whisper_ft.py", "recipes/trans_asr.py",
+                "recipes/transkd_asr.py", "recipes/distil_prompt.py"):
         with open(os.path.join(ROOT, "whisper_flamingo_tpu_torch", rel)) as fh:
             text = fh.read()
         assert not re.search(r"^\s*except\b", text, re.MULTILINE), rel

@@ -57,11 +57,16 @@
 //     launches give the same bits. At N = 128 the partial sums take the
 //     activation tile's place once every CTA's products are done (a cluster
 //     barrier), so that two fc1 CTAs share an SM.
-//   - fc2 launches in stream order after fc1. Programmatic dependent launch
-//     (fc2's CTAs landing their W2 slices while fc1 runs, then
-//     griddepcontrol.wait before they read `act`) failed on the card at
-//     N = 128 with "unspecified launch failure", for a reason not found; so
-//     it is off at every N until that is understood (its cost: PERF.md).
+//   - fc2 launches early, by programmatic dependent launch: fc1's CTAs
+//     trigger it as they start, fc2's CTAs land their W2 slices while fc1
+//     runs, then wait (griddepcontrol.wait) for fc1's `act`. An earlier
+//     version of this kernel failed so at N = 128 with "unspecified launch
+//     failure"; that code was not kept and its cause is unknown. The
+//     failure does not reproduce in the reduced case
+//     (tests/test_torch_cuda.py, stale barriers left in shared memory before
+//     every call), so the early launch is on again (PERF.md row 6). A
+//     separate fault found on the way, threads polling the barriers before
+//     thread 0 initialised them, is mended below.
 // fp32 x (the checks' type): no TF32, so the products are fp32 FMA, one warp
 // per output value with the lanes over the contraction and a butterfly sum
 // (fixed order), two plain launches.
@@ -169,6 +174,17 @@ __global__ void __launch_bounds__(NT) mlp_pass_kernel(
     for (int kb = 0; kb < kbs; ++kb)
       hopper::tma_load_2d(INT8 ? w8 + kb * MT * KB : wsm + kb * MT * 128, &wmap, &w_bar,
                           k0 + kb * KB, m0);
+  }
+  // the barriers are initialised before any other thread polls them: a
+  // thread that polled first would read the barrier a CTA before it left at
+  // this address, whose phase 0 may have completed
+  __syncthreads();
+  // fc2 may start now; launched early, it reads fc1's `act` only once fc1
+  // has finished
+  if constexpr (FC2) {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  } else {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   }
   // this thread's epilogue rows: m = m0 + rank * rows_per + tid % rows_per
   // for every element it finishes (NT is a multiple of rows_per)
@@ -324,13 +340,15 @@ int launch_pass(const CUtensorMap& wmap, const bf16* a_in, const bf16* bias, con
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cl;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = FC2 ? 2 : 1;
   return static_cast<int>(
       cudaLaunchKernelEx(&cfg, kernel, wmap, a_in, bias, scale, out, rows, M, K, kbs));
 }

@@ -12,8 +12,9 @@
 // into the swizzled layout as that kernel converts its weights; and the two
 // forms of the matmul-pair kernel (csrc/mma_pair.cu): SS with K = d up to
 // 256 (A K-major over d / 64 tiles, B MN-major over d rows) and RS at N = 64,
-// 128 and 256 (B MN-major over N / 64 tiles, LBO apart). It is on no system
-// path.
+// 128 and 256 (B MN-major over N / 64 tiles, LBO apart). Besides, a kernel
+// that leaves stale barriers in shared memory for the decode-MLP tests. It
+// is on no system path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -373,4 +374,20 @@ extern "C" int wf_wgmma_pair_check(const void* a, const void* b, float* d, int f
     case 128: return launch_pair_check(pair_rs_check_kernel<128>, smem, s, bm, ap, d);
     default: return launch_pair_check(pair_rs_check_kernel<256>, smem, s, bm, ap, d);
   }
+}
+
+// Leaves barriers whose phase 0 has completed in the static shared memory of
+// every SM (32 blocks an SM), where the next kernel's barriers sit: a thread
+// of that kernel that polled its barrier before the barrier was initialised
+// would pass at once.
+__global__ void stale_barriers_kernel() {
+  __shared__ uint64_t bars[64];
+  const uint32_t a = smem_u32(&bars[threadIdx.x]);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");
+  mbar_arrive(&bars[threadIdx.x]);
+}
+
+extern "C" int wf_stale_barriers(void* stream) {
+  stale_barriers_kernel<<<132 * 32, 64, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

@@ -42,8 +42,8 @@ computes), the in-loop one-hot beam reorder (``row_perm``; the decode loop
 reorders the self cache with ``index_select``), the transposed
 (B, H, Dh, T) slabs, the fused QKV projection (int8 quantizes q, k and v
 apart: per-output-channel scales give the fused weight's int8 values and
-scales), the rematerialization policies other than full per-block
-recompute, and the legacy keyword conditioning (``embed_tokens_as_xt``).
+scales), and the rematerialization policies other than full per-block
+recompute.
 
 Training runs autograd through :func:`encoder_apply` and the teacher-forced
 :func:`decoder_apply`; the decode paths (the cached decoder, :func:`init_cache`,
@@ -468,6 +468,15 @@ def _prepare_xt(params: Whisper, dims: ModelDimensions, xt: torch.Tensor, dtype)
     if xt.shape[-1] != dims.n_text_state:
         xt = linear(dec.xt_projection, xt)
     return xt + dec.positional_embedding[: xt.shape[2]].to(dtype)
+
+
+def embed_tokens_as_xt(params: Whisper, dims: ModelDimensions, tokens: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A conditioning stream from the decoder's own token embedding: (B, S)
+    token ids -> (1, B, S, n_text_state), to pass as ``xt`` (the legacy
+    "keyword" / "mix" decoder modes, which condition the gated x-attn on
+    embedded keyword tokens; :func:`_prepare_xt` adds the positions)."""
+    return params.decoder.token_embedding.weight[tokens].to(dtype)[None]
 
 
 @torch.no_grad()

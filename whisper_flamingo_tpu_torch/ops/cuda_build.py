@@ -35,7 +35,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[object, ctypes.CDLL] = {}  # name, or (name, *defines)
 _LOCK = threading.Lock()
 
 
@@ -49,30 +49,34 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str, csrc: Optional[str] = None) -> str:
+def _lib_path(name: str, csrc: Optional[str] = None, defines: Sequence[str] = ()) -> str:
     csrc = csrc or CSRC
     digest = hashlib.sha256()
     for path in [os.path.join(csrc, f"{name}.cu"), *sorted(glob.glob(os.path.join(csrc, "*.cuh")))]:
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             digest.update(f.read())
+    for flag in defines:
+        digest.update(flag.encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build_all(names: Sequence[str] = KERNELS, csrc: Optional[str] = None) -> List[str]:
+def build_all(names: Sequence[str] = KERNELS, csrc: Optional[str] = None,
+              defines: Sequence[str] = ()) -> List[str]:
     """Build every kernel that is not built yet, with one nvcc per source,
     all started together; returns the libraries' paths. ``csrc`` may be
-    another checkout's source directory: the hash names keep its libraries
-    apart from this one's."""
+    another checkout's source directory, and ``defines`` nvcc's ``-D``
+    flags of a build variant: the hash names keep their libraries apart
+    from this one's."""
     csrc = csrc or CSRC
-    targets = [_lib_path(n, csrc) for n in names]
+    targets = [_lib_path(n, csrc, defines) for n in names]
     jobs = []
     for name, target in zip(names, targets):
         if os.path.isfile(target):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{target}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp, os.path.join(csrc, f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, proc, tmp, target))
     logs = [proc.communicate()[0] for _, proc, _, _ in jobs]  # wait for every nvcc
@@ -94,16 +98,18 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if it is not there yet."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The kernel library ``name`` (built with the ``-D`` flags
+    ``defines``), built first if it is not there yet."""
+    key = (name, *defines) if defines else name
+    lib = _LIBS.get(key)
     if lib is not None:
         return lib
     with _LOCK:
-        if name not in _LIBS:
-            (target,) = build_all([name])
-            _LIBS[name] = ctypes.CDLL(target)
-        return _LIBS[name]
+        if key not in _LIBS:
+            (target,) = build_all([name], defines=defines)
+            _LIBS[key] = ctypes.CDLL(target)
+        return _LIBS[key]
 
 
 def stream_ptr(t: torch.Tensor) -> int:

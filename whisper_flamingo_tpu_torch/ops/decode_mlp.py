@@ -151,7 +151,11 @@ def plan(rows: int, d: int, f: int, int8: bool) -> Plan:
 
 
 def _lib():
-    lib = cuda_build.load("decode_mlp")
+    return _bind(cuda_build.load("decode_mlp"))
+
+
+def _bind(lib):
+    """``lib`` (a build of ``csrc/decode_mlp.cu``) with its C signatures."""
     if lib.wf_decode_mlp.argtypes is None:
         lib.wf_decode_mlp_prepare.restype = ctypes.c_void_p
         lib.wf_decode_mlp_prepare.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [

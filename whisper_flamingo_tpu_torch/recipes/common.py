@@ -9,9 +9,11 @@ comes from the config's ``dataset`` key:
   may hold ``{split}``);
 - ``hf:<name>[:<config>]``: HuggingFace datasets, not ported yet (raises).
 
-The model is built on the config's ``device`` (the card unless it says
-``cpu``). Mesh parallelism (``num_devices`` x ``tp_size`` > 1) and the BERT
-conditioner of the Flamingo recipes are later slices and raise.
+The model and the text conditioner (:func:`build_conditioner`, BERT over
+the translation strings, run by the trainer's ``prepare_batch`` hook) are
+built on the config's ``device`` (the card unless it says ``cpu``). Mesh
+parallelism (``num_devices`` x ``tp_size`` > 1) is a later slice and
+raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import argparse
 import ast
 import os
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -34,6 +36,7 @@ from ..data.dataset import (
 )
 from ..data.samplers import DistributedBatchSampler, ShuffledBatchSampler, SortedBatchSampler
 from ..data.translations import CsvLookup, TranslatedSource, build_lookups
+from ..models.bert import HFBertConditioner, TextConditioner
 from ..models.whisper import Whisper
 from ..training.optim import Mask
 from ..training.steps import cast_frozen_bf16
@@ -166,6 +169,42 @@ def maybe_cast_frozen(cfg: TrainConfig, model: Whisper, trainable_mask: Mask) ->
     if cfg.compute_dtype != torch.bfloat16 or not cfg.extras.get("frozen_params_bf16", True):
         return model
     return cast_frozen_bf16(model, trainable_mask)
+
+
+def build_conditioner(cfg: TrainConfig) -> HFBertConditioner:
+    """The BERT conditioner ``cfg.bert_encoder`` on ``cfg.device``
+    (``bert_pretrained``, default true: its local weights; false: random
+    weights, ``bert_dim`` wide when no cached config names a width). A
+    conditioner of another width than ``bert_dim`` raises here: the model
+    projects ``xt`` only when ``bert_dim`` differs from its own width, so a
+    wrong width cannot be projected silently."""
+    cond = HFBertConditioner(
+        cfg.bert_encoder, pretrained=bool(cfg.extras.get("bert_pretrained", True)),
+        hidden_size=int(cfg.bert_dim or 0), device=cfg.device,
+    )
+    if cond.dim != cfg.bert_dim:
+        raise ValueError(
+            f"conditioner '{cfg.bert_encoder}' emits {cond.dim}-dim states "
+            f"but the config says bert_dim={cfg.bert_dim}; set bert_dim to "
+            "the conditioner's true width"
+        )
+    return cond
+
+
+def make_xt_prepare(conditioner: TextConditioner, num_langs: int) -> Callable:
+    """Batch hook: the conditioner over the first ``num_langs`` translation
+    streams of the batch, as ``batch["xt"]`` (n_langs, B, S, D); a batch
+    without translations passes through."""
+
+    def prepare(batch):
+        if "all_translations" not in batch:
+            return batch
+        per_lang = list(zip(*batch["all_translations"]))[:num_langs]
+        batch = dict(batch)
+        batch["xt"] = conditioner.encode_multi(per_lang)
+        return batch
+
+    return prepare
 
 
 def load_config(argv: Optional[List[str]] = None) -> TrainConfig:
