@@ -166,6 +166,35 @@ each printing one JSON line:
     versions with the same tokens; 12 decode-attention launches per
     incremental step and 12 flash64 launches per batch; RTF and tokens/s.
 
+18. av: the audio-visual path at the full width of
+    ``configs/audio-visual/av_en-x_small.yaml`` (Whisper ``small`` with one
+    gated stream, ``bert_dim`` 1024; the AV-HuBERT ``large`` trunk, 24
+    layers of 1024, and its ``large-avsr`` variant; random weights from
+    seeds, the BatchNorm statistics randomized) on 16 s clips, 400 frames
+    of 88x88 lip crops (the stream takes the decoder's 448 positions, so a
+    30 s clip of 750 frames raises in both packages). (a) The ``large``
+    trunk in fp32 on the card against the same module on the CPU (b1, 50
+    frames, within 1e-4 of the largest magnitude); the bf16 ``large-avsr``
+    trunk's ms at b8 x 400 frames and its plain attention's alone (24 x
+    ``qkv_attention`` at (8, 400, 1024)). (b) ``AVWhisper.decode`` in bf16
+    on the bench protocol (b8, 64 tokens, EOT suppressed, gates at 1):
+    beam 15 under avsr, vsr and asr, greedy under avsr; RTF over the 16 s
+    clips, tokens/s, the device idle share of a profiled batch, the
+    trunk's share of the avsr beam-15 batch; launches: 12 flash64 per
+    batch (0 under vsr, which decodes zero encoder features), 12
+    decode-attention per incremental step. (c) fp32 greedy avsr through
+    the kernels and through the plain versions: the same tokens. (d)
+    ``recipes.av_train`` in-process on that config (synthetic 16 s
+    utterances, b8, 3 steps, bf16, the Whisper and the trunk frozen): ms
+    per step (median of steps 2 and 3), the device idle share of the third
+    step rerun on a copy under the profiler, peak memory, 12 flash64
+    forward launches and none backward per step, finite losses, the gated
+    weights changed and every other Whisper weight bit-equal. (e)
+    ``recipes.decode_av`` in-process over a manifest of 8 WAVs and
+    400-frame ``.npy`` clips, avsr, beam 15: ``hypo.txt`` and ``ref.txt``
+    written. (f) ``adakws_apply`` and ``reprogramming_apply`` at their
+    default widths (d 768), card against CPU within 1e-4.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
 throughout. Any failed phase raises, and the script exits non-zero.
@@ -1592,6 +1621,324 @@ def phase_text_conditioner(torch, device="cuda", mbert=MBERT, overrides=TEXT_OVE
     return out
 
 
+# 18: configs/audio-visual/av_en-x_small.yaml at full width (small + the
+# AV-HuBERT large trunk) on 16 s clips: 400 frames of 88x88 lip crops
+AV_SECONDS = 16
+AV_SIZES = dict(model="small", trunk="large", trunk_avsr="large-avsr", frames=400, hw=88,
+                check_frames=50,
+                config=os.path.join("configs", "audio-visual", "av_en-x_small.yaml"))
+AV_OVERRIDES = ("dataset=synthetic", "synthetic_n=16", f"synthetic_sec={AV_SECONDS}",
+                "pt_ckpt=", "video_model_ckpt=", "num_devices=1", "num_train_steps=3",
+                "warmup_steps=1", "validate_every_n_batches=2", "log_every=1")
+
+
+def _random_bn_stats(torch, module, gen):
+    """Non-trivial BatchNorm running statistics (a fresh init's are 0 and 1)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.normal_(0.0, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+
+
+def phase_av(torch, device="cuda", sizes=AV_SIZES, overrides=AV_OVERRIDES):
+    """18: the audio-visual path and the legacy modules (see the module
+    docstring); ``device`` and ``sizes`` let the phase run at debug sizes
+    on the CPU, where no kernel launches."""
+    import copy
+    import wave
+    from unittest.mock import patch
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.audio import pad_or_trim
+    from whisper_flamingo_tpu_torch.models import avhubert, legacy
+    from whisper_flamingo_tpu_torch.ops import decode_attn, decode_mlp, flash64
+    from whisper_flamingo_tpu_torch.ops.attention import qkv_attention
+    from whisper_flamingo_tpu_torch.recipes import av_train, common, decode_av
+    from whisper_flamingo_tpu_torch.tokenizer import get_tokenizer
+    from whisper_flamingo_tpu_torch.training.optim import flamingo_trainable_mask
+
+    cuda = torch.device(device).type == "cuda"
+    per_launch = 1 if cuda else 0  # the CPU runs the plain versions: no launches
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def busy_ms(fn):
+        if not cuda:
+            return float("nan")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        return _device_busy(torch, prof)[0]
+
+    def counters():
+        return {"flash64": flash64.flash64_forward.launches,
+                "flash64_bwd": flash64.flash64_backward.launches,
+                "decode_attn": decode_attn.fused_step.launches,
+                "decode_mlp": decode_mlp.fused_mlp.launches}
+
+    def zero_counters():
+        for c in (flash64.flash64_forward, flash64.flash64_backward, decode_attn.fused_step,
+                  decode_mlp.fused_mlp):
+            c.launches = 0
+
+    out = {}
+    rng = np.random.default_rng(18)
+    b, t, hw = BATCH, sizes["frames"], sizes["hw"]
+    eot = get_tokenizer(True, language="en", task="transcribe").eot
+
+    # (a) the large trunk in fp32, the card against the CPU, one seeded init
+    vcfg = avhubert.VIDEO_ENCODER_CONFIGS[sizes["trunk"]]
+    gen = torch.Generator().manual_seed(0)
+    cpu_trunk = avhubert.init_video_encoder(gen, vcfg, device="cpu")
+    _random_bn_stats(torch, cpu_trunk, gen)
+    trunk = copy.deepcopy(cpu_trunk).to(device)
+    clip = torch.from_numpy(rng.standard_normal((1, sizes["check_frames"], hw, hw))
+                            .astype(np.float32))
+    ref = avhubert.video_encoder_apply(cpu_trunk, vcfg, clip)
+    got = avhubert.video_encoder_apply(trunk, vcfg, clip.to(device))
+    del cpu_trunk
+    scale, err = ref.abs().max().item(), max_err(got.cpu(), ref)
+    row = {"trunk": sizes["trunk"], "params": sum(p.numel() for p in trunk.parameters()),
+           "clip": list(clip.shape), "max_abs_err_vs_cpu": err, "scale": scale, "rel_tol": 1e-4}
+
+    # the avsr trunk in bf16 at b8 x 400 frames: the trunk and its attention alone
+    acfg = avhubert.VIDEO_ENCODER_CONFIGS[sizes["trunk_avsr"]]
+    avsr_trunk = avhubert.init_video_encoder(torch.Generator().manual_seed(1), acfg, device="cpu")
+    _random_bn_stats(torch, avsr_trunk, gen)
+    avsr_trunk = avsr_trunk.to(device)
+    waves = (rng.standard_normal((b, AV_SECONDS * 16000)) * 0.05).astype(np.float32)
+    mel = wt.log_mel_spectrogram(pad_or_trim(waves), device=device)
+    video = torch.from_numpy(rng.standard_normal((b, t, hw, hw)).astype(np.float32)).to(device)
+    fbank = torch.from_numpy(np.stack([avhubert.stacked_fbank_features(w)[:t] for w in waves])
+                             ).to(device)
+
+    def timed_ms(fn, iters=5):
+        fn()
+        sync()
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    row["bf16_trunk_ms"] = timed_ms(lambda: avhubert.avhubert_encoder_apply(
+        avsr_trunk, acfg, video=video, audio=fbank, dtype=torch.bfloat16))
+    q = torch.randn((b, t, acfg.embed_dim), device=device, dtype=torch.bfloat16)
+    row["bf16_trunk_attention_ms"] = acfg.n_layers * timed_ms(
+        lambda: qkv_attention(q, q, q, acfg.n_heads), iters=10)
+    row["bf16_trunk_shape"] = [b, t, hw, hw]
+    out["trunk"] = row
+    emit({"phase": "av_trunk_large", **row})
+    if not (err <= 1e-4 * scale and torch.isfinite(got).all().item()):
+        raise AssertionError(f"AV trunk on the card vs the CPU: {row}")
+
+    # (b) AV decode on the bench protocol: small, one stream from the trunk
+    model = wt.load_model(sizes["model"], device=device, seed=0, add_gated_x_attn=1,
+                          num_langs=1, bert_dim=vcfg.embed_dim)
+    with torch.no_grad():
+        for blk in model.decoder.blocks:
+            blk.ff_gate.fill_(1.0)
+            for sub in blk.gated_x_attn_layers:
+                sub.attn_gate.fill_(1.0)
+    model.dtype = torch.bfloat16  # the trunk computes in the model's dtype
+    avs = {"avsr": avhubert.AVWhisper(model, avsr_trunk), "vsr": avhubert.AVWhisper(model, trunk),
+           "asr": avhubert.AVWhisper(model, trunk)}
+    inputs = {"avsr": dict(video=video, audio=fbank), "vsr": dict(video=video, test_v=True),
+              "asr": dict(test_a=True)}
+    n_enc, n_dec, n_steps = model.dims.n_audio_layer, model.dims.n_text_layer, SAMPLE_LEN - 1
+
+    def options(fp16, beam):
+        return wt.DecodingOptions(language="en", without_timestamps=True, sample_len=SAMPLE_LEN,
+                                  fp16=fp16, beam_size=beam, suppress_tokens=f"-1,{eot}")
+
+    runs = {}
+    for name, modality, beam in (("avsr_beam15", "avsr", BEAM), ("vsr_beam15", "vsr", BEAM),
+                                 ("asr_beam15", "asr", BEAM), ("avsr_greedy", "avsr", None)):
+        av, kw, opts = avs[modality], inputs[modality], options(True, beam)
+        zero_counters()
+        res = av.decode(mel, opts, **kw)
+        sync()
+        launches = counters()
+        want = {"flash64": 0 if modality == "vsr" else n_enc * per_launch, "flash64_bwd": 0,
+                "decode_attn": n_dec * n_steps * per_launch, "decode_mlp": 0}
+        t0 = time.perf_counter()  # the counted run was the warm-up
+        av.decode(mel, opts, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        busy = busy_ms(lambda: av.decode(mel, opts, **kw))
+        r = runs[name] = {
+            "launches": launches,
+            "decode_attn_per_incremental_step": launches["decode_attn"] / n_steps,
+            "s_per_batch": wall, "rtf": b * AV_SECONDS / wall, "tok_s": b * SAMPLE_LEN / wall,
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3),
+            "tokens_ok": all(len(x.tokens) == SAMPLE_LEN and np.isfinite(x.avg_logprob)
+                             for x in res)}
+        emit({"phase": f"av_decode_{name}_small_b{b}", **r})
+        if launches != want or not r["tokens_ok"] or len(res) != b:
+            raise AssertionError(f"AV decode {name}: launches {launches}, expected {want}; {r}")
+    batch_ms = runs["avsr_beam15"]["s_per_batch"] * 1e3
+    shares = {"trunk_share_of_avsr_beam15_batch": row["bf16_trunk_ms"] / batch_ms,
+              "trunk_attention_share_of_avsr_beam15_batch":
+                  row["bf16_trunk_attention_ms"] / batch_ms}
+    out["decode"] = dict(runs, **shares)
+    emit({"phase": "av_decode_shares", **shares})
+
+    # (c) fp32 greedy avsr: through the kernels, then through the plain versions
+    model.dtype = torch.float32
+    opts = options(False, None)
+    kernel_res = avs["avsr"].decode(mel, opts, **inputs["avsr"])
+    restore = _plain_kernels(decode_attn, decode_mlp, flash64)
+    try:
+        plain_res = avs["avsr"].decode(mel, opts, **inputs["avsr"])
+    finally:
+        restore()
+    same = [k.tokens == p.tokens for k, p in zip(kernel_res, plain_res)]
+    out["fp32"] = {"tokens_equal": same, "avg_logprob_max_diff": max(
+        abs(k.avg_logprob - p.avg_logprob) for k, p in zip(kernel_res, plain_res))}
+    emit({"phase": "av_fp32_greedy_kernel_vs_plain", **out["fp32"]})
+    if not all(same):
+        raise AssertionError("AV fp32 greedy: kernel tokens differ from plain tokens")
+    del model, avs, trunk, avsr_trunk, video, fbank, q
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) av_train: 3 steps of the gated layers on a frozen Whisper and trunk
+    built, steps = [], []
+    build_model = common.build_model
+
+    def capture_build_model(cfg, **kw):
+        m = build_model(cfg, **kw)
+        built.append((m, {n: p.detach().clone() for n, p in m.named_parameters()}))
+        return m
+
+    def counted_av_step(*a, **kw):
+        step = make_av_train_step(*a, **kw)
+
+        def run(state, video_, batch, generator):
+            before = counters()
+            sync()
+            t0 = time.perf_counter()
+            res = step(state, video_, batch, generator)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = counters()
+            steps.append({"ms": ms, "flash64": {k: after[k] - before[k]
+                                                for k in ("flash64", "flash64_bwd")},
+                          "tokens": int(np.prod(batch["dec_input_ids"].shape))})
+            if len(steps) == 3:  # the last step again under the profiler, on a copy
+                steps[-1]["device_busy_ms"] = busy_ms(
+                    lambda: step(copy.deepcopy(state), video_, batch, generator))
+            return res
+
+        return run
+
+    make_av_train_step = av_train.make_av_train_step
+    with tempfile.TemporaryDirectory() as tmp:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        flash64.flash64_forward.lse_launches = 0
+        with (patch.object(common, "build_model", capture_build_model),
+              patch.object(av_train, "make_av_train_step", counted_av_step)):
+            state = av_train.main([os.path.join(ROOT, sizes["config"]), *overrides,
+                                   f"device={device}", "train_id=av", f"log_output_dir={tmp}/logs",
+                                   f"check_output_dir={tmp}/ckpt"])
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        with open(os.path.join(tmp, "logs", "av.metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    model, before = built.pop()
+    trainable = flamingo_trainable_mask(model)
+    frozen_changed = [n for n, p in model.named_parameters()
+                      if not trainable[n] and not torch.equal(p, before[n].to(p.dtype))]
+    gated_unchanged = [n for n, p in model.named_parameters()
+                       if trainable[n] and torch.equal(p, before[n])]
+    losses = [r["loss"] for r in records if "loss" in r]
+    step_ms = float(np.median([s["ms"] for s in steps[1:]]))
+    prof_busy = steps[-1].get("device_busy_ms", float("nan"))
+    out["train"] = {"steps": len(steps), "losses": losses, "val_loss": [
+        r["val/loss"] for r in records if "val/loss" in r], "ms_per_step": step_ms,
+        "step_ms_all": [s["ms"] for s in steps], "tokens_per_s": steps[1]["tokens"] / step_ms * 1e3,
+        "device_busy_ms_step3": prof_busy, "idle_share": 1.0 - prof_busy / step_ms,
+        "peak_mem_gb": peak, "flash64_per_step": [s["flash64"] for s in steps],
+        "lse_launches": flash64.flash64_forward.lse_launches,
+        "frozen_params_changed": frozen_changed, "gated_params_unchanged": gated_unchanged}
+    emit({"phase": f"av_train_small_large_b{b}", **out["train"]})
+    want = {"flash64": n_enc * per_launch, "flash64_bwd": 0}
+    if (frozen_changed or gated_unchanged or len(losses) != 3 or not np.all(np.isfinite(losses))
+            or state.step != 3 or any(s["flash64"] != want for s in steps)
+            or flash64.flash64_forward.lse_launches):
+        raise AssertionError(f"av_train: {out['train']}")
+    del state, model, before
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (e) decode_av in-process: 8 WAVs and 400-frame clips, beam 15, avsr
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = ["id\twav_path\ttext\tvideo_path"]
+        for i in range(b):
+            with wave.open(os.path.join(tmp, f"u{i}.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes((waves[i] * 32767).astype(np.int16).tobytes())
+            np.save(os.path.join(tmp, f"u{i}.npy"),
+                    rng.standard_normal((t, hw, hw)).astype(np.float32))
+            rows.append(f"u{i}\t{tmp}/u{i}.wav\tutterance number {i}\t{tmp}/u{i}.npy")
+        with open(os.path.join(tmp, "test.tsv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        zero_counters()
+        t0 = time.perf_counter()
+        metrics = decode_av.main(["--model-type", sizes["model"], "--modalities", "avsr",
+                                  "--video-encoder", sizes["trunk_avsr"], "--beam-size", str(BEAM),
+                                  "--batch-size", str(b), "--manifest", f"{tmp}/test.tsv",
+                                  "--decode-dir", f"{tmp}/out", "--device", device])
+        sync()
+        wall = time.perf_counter() - t0
+        launches = counters()
+        written = {}
+        for name in ("hypo.txt", "ref.txt"):
+            with open(os.path.join(tmp, "out", name)) as f:
+                written[name] = f.read().split("\n")
+    out["decode_av"] = {"metrics": metrics, "wall_s": wall, "launches": launches,
+                        "lines": {k: len(v) for k, v in written.items()}}
+    emit({"phase": "av_decode_av_recipe_beam15", **out["decode_av"]})
+    if (len(written["hypo.txt"]) != b or written["ref.txt"][0] != "utterance number 0"
+            or launches["flash64"] != n_enc * per_launch or launches["decode_attn"] % n_dec
+            or (cuda and not launches["decode_attn"])):
+        raise AssertionError(f"decode_av: {out['decode_av']}")
+
+    # (f) the legacy modules at their default widths, card against CPU, fp32
+    kws_cpu = legacy.init_adakws(gen, 64, device="cpu")
+    rep_cpu = legacy.init_reprogramming(gen, 768, 12, d_llm=768, device="cpu")
+    feats = torch.from_numpy(rng.standard_normal((2, 1500, 768)).astype(np.float32))
+    keywords = torch.from_numpy(rng.integers(0, 64, (2, 2, 8)))
+    target = torch.from_numpy(rng.standard_normal((b, 64, 768)).astype(np.float32))
+    source = torch.from_numpy(rng.standard_normal((1000, 768)).astype(np.float32))
+    legacy_rows = {}
+    for name, fn, mod, args in (
+            ("adakws", legacy.adakws_apply, kws_cpu, (feats, keywords)),
+            ("reprogramming_m1", lambda m, tg, s: legacy.reprogramming_apply(m, tg, s, s, 12),
+             rep_cpu, (target, source))):
+        ref = fn(mod, *args)
+        got = fn(copy.deepcopy(mod).to(device), *(a.to(device) for a in args))
+        legacy_rows[name] = {"shape": list(got.shape),
+                             "max_abs_err_vs_cpu": max_err(got.cpu(), ref),
+                             "scale": ref.abs().max().item(), "rel_tol": 1e-4}
+    out["legacy"] = legacy_rows
+    emit({"phase": "legacy", **legacy_rows})
+    if any(r["max_abs_err_vs_cpu"] > 1e-4 * r["scale"] for r in legacy_rows.values()):
+        raise AssertionError(f"legacy modules on the card vs the CPU: {legacy_rows}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1724,6 +2071,10 @@ def main() -> int:
     # -- 17. the text conditioner and the text recipes -------------------------
     phase_text_conditioner(torch)
     mark("17")
+
+    # -- 18. the audio-visual path and the legacy modules ----------------------
+    phase_av(torch)
+    mark("18")
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

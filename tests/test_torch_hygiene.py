@@ -41,6 +41,9 @@ import whisper_flamingo_tpu_torch.recipes.distil_prompt, whisper_flamingo_tpu_to
 import whisper_flamingo_tpu_torch.recipes.generate_pseudo_labels
 import whisper_flamingo_tpu_torch.recipes.decode_matrix
 import whisper_flamingo_tpu_torch.recipes.keyword_stats
+import whisper_flamingo_tpu_torch.models.visual, whisper_flamingo_tpu_torch.models.avhubert
+import whisper_flamingo_tpu_torch.models.legacy
+import whisper_flamingo_tpu_torch.recipes.av_train, whisper_flamingo_tpu_torch.recipes.decode_av
 from whisper_flamingo_tpu_torch.config import TrainConfig
 from whisper_flamingo_tpu_torch.recipes.common import build_conditioner
 # the offline conditioner (no HF cache: HF_HOME is an empty directory)
@@ -91,7 +94,8 @@ def test_sources_name_no_jax_module():
                 "tools/mma_pair_ab", "models/bert", "recipes/trans_asr",
                 "recipes/transkd_asr", "recipes/distil_prompt", "recipes/evaluate",
                 "recipes/generate_pseudo_labels", "recipes/decode_matrix",
-                "recipes/keyword_stats"):
+                "recipes/keyword_stats", "models/visual", "models/avhubert",
+                "models/legacy", "recipes/av_train", "recipes/decode_av"):
         assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
     for path in _sources():
         with open(path) as fh:
@@ -126,7 +130,8 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 # model and needs no device)
 TEXT_RECIPES = [("trans_asr", "trans_asr"), ("transkd_asr", "transkd"),
                 ("distil_prompt", "distil_prompt"), ("evaluate", "trans_asr"),
-                ("generate_pseudo_labels", "trans_asr"), ("decode_matrix", "trans_asr")]
+                ("generate_pseudo_labels", "trans_asr"), ("decode_matrix", "trans_asr"),
+                ("av_train", "av")]
 
 
 @pytest.mark.parametrize("name,config", TEXT_RECIPES, ids=[n for n, _ in TEXT_RECIPES])
@@ -144,7 +149,7 @@ def test_text_recipes_need_a_device(monkeypatch, tmp_path, name, config):
 
 
 def test_conditioners_need_a_device(monkeypatch):
-    from whisper_flamingo_tpu_torch.models import bert
+    from whisper_flamingo_tpu_torch.models import avhubert, bert, legacy, visual
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -152,6 +157,13 @@ def test_conditioners_need_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bert.PrecomputedConditioner({}, 16)
     assert bert.HFBertConditioner(pretrained=False, device="cpu").device.type == "cpu"
+    gen = torch.Generator()
+    for init in (lambda: visual.init_visual_frontend(gen),
+                 lambda: avhubert.init_video_encoder(gen, avhubert.VIDEO_ENCODER_CONFIGS["debug"]),
+                 lambda: avhubert.load_avhubert_torch({}, avhubert.VIDEO_ENCODER_CONFIGS["debug"]),
+                 lambda: legacy.init_adakws(gen, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init()
 
 
 def test_kernel_wrappers_raise_on_a_device_without_a_kernel():

@@ -11,7 +11,11 @@ error-rate metrics, and audio-only Whisper fine-tuning (``config``,
 ``data/``, ``training/``, ``profiling``, ``recipes/``), and serving: the
 int8 / int8kv modes (``DecodingOptions(quantize=...)``), speculative
 decoding (``speculative``, ``transcribe(draft_model=...)``) and the
-``serving`` module's ``BatchTranscriber`` and ``ContinuousBatcher``. The
+``serving`` module's ``BatchTranscriber`` and ``ContinuousBatcher``; the
+text conditioner (``models/bert``) and the text recipes; the audio-visual
+path (``models/visual``, the lip-video ResNet; ``models/avhubert``, the
+AV-HuBERT trunk and ``AVWhisper``; the AV train step and the ``av_train``
+and ``decode_av`` recipes) and the legacy modules (``models/legacy``). The
 kernels of those paths (encoder attention forward and backward, decode
 attention, the decode MLP, the DTW wavefront) are CUDA C++ for ``sm_90a``
 under ``csrc/``, built with ``nvcc`` at first use.
@@ -26,8 +30,7 @@ on the card unless the config or an override says ``device=cpu``
 ``python3 chip_smoke.py`` drives it on the card. The package imports
 torch, numpy, tiktoken, regex and yaml, never JAX or the JAX package.
 
-Not ported yet (see ROADMAP.md): the Flamingo, KD, prompt and AV recipes,
-the BERT / AV-HuBERT / visual / legacy models and parallelism.
+Not ported yet (see ROADMAP.md): parallelism (DP / TP meshes).
 """
 
 from __future__ import annotations

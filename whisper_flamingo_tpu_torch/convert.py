@@ -8,9 +8,11 @@ gated sub-blocks stacked (layer, lang)) and returns the port's state dict
 (OpenAI key names, torch layouts), so both packages compute one function.
 Any pytree shaped like the parameters crosses the same way: gradients and
 Adam moments (e.g. ``opt_state[0].mu``) come out keyed by parameter name,
-for comparison with the port's ``.grad`` and optimizer state. It imports
-nothing of JAX: convert the pytree with ``jax.tree.map(np.asarray, tree)``
-first.
+for comparison with the port's ``.grad`` and optimizer state.
+:func:`video_params_from_jax` does the same for the AV-HuBERT trunk (and
+:func:`visual_frontend_from_jax` for the lip-video frontend alone), into
+the port's fairseq-keyed modules. It imports nothing of JAX: convert the
+pytree with ``jax.tree.map(np.asarray, tree)`` first.
 """
 
 from __future__ import annotations
@@ -92,4 +94,84 @@ def params_from_jax(
 
     blocks("encoder", enc["blocks"], dims.n_audio_layer, cross=False)
     blocks("decoder", dec["blocks"], dims.n_text_layer, cross=True)
+    return out
+
+
+def _bn_from_jax(out: Dict[str, torch.Tensor], prefix: str, p: Mapping[str, Any]) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+    out[f"{prefix}.running_mean"] = _t(p["mean"])
+    out[f"{prefix}.running_var"] = _t(p["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def visual_frontend_from_jax(tree: Mapping[str, Any],
+                             prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The JAX visual frontend pytree (numpy) -> the port's
+    :class:`.models.visual.VisualFrontend` state under ``prefix``: conv
+    weights DHWIO -> OIDHW and HWIO -> OIHW, BatchNorm scale / bias / mean /
+    variance into weight / bias / running statistics, PReLU alphas."""
+    out: Dict[str, torch.Tensor] = {}
+    conv3d = np.asarray(tree["conv3d"]["w"])
+    out[f"{prefix}frontend3D.0.weight"] = _t(conv3d.transpose(4, 3, 0, 1, 2))
+    _bn_from_jax(out, f"{prefix}frontend3D.1", tree["bn3d"])
+    out[f"{prefix}frontend3D.2.weight"] = _t(tree["prelu"]["alpha"])
+
+    def conv2d(w) -> torch.Tensor:
+        return _t(np.asarray(w).transpose(3, 2, 0, 1))
+
+    for stage in ("layer1", "layer2", "layer3", "layer4"):
+        for i, blk in enumerate(tree[stage]):
+            p = f"{prefix}{stage}.{i}"
+            for n in (1, 2):
+                out[f"{p}.conv{n}.weight"] = conv2d(blk[f"conv{n}"]["w"])
+                _bn_from_jax(out, f"{p}.bn{n}", blk[f"bn{n}"])
+                out[f"{p}.relu{n}.weight"] = _t(blk[f"prelu{n}"]["alpha"])
+            if "downsample" in blk:
+                out[f"{p}.downsample.0.weight"] = conv2d(blk["downsample"]["conv"]["w"])
+                _bn_from_jax(out, f"{p}.downsample.1", blk["downsample"]["bn"])
+    return out
+
+
+def video_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The JAX AV-HuBERT trunk pytree (numpy) -> the port's
+    :class:`.models.avhubert.VideoEncoder` state for ``cfg``: the stacked
+    (L, ...) block leaves unstacked into ``encoder.layers.{i}``, linears
+    (in, out) -> (out, in), the pos conv (K, I/g, O) -> (O, I/g, K), the
+    frontend as :func:`visual_frontend_from_jax` (BatchNorm statistics
+    carried)."""
+    out = visual_frontend_from_jax(tree["frontend"], "feature_extractor_video.resnet.")
+
+    def lin(name: str, p: Mapping[str, Any], idx=None) -> None:
+        w, b = np.asarray(p["w"]), np.asarray(p["b"])
+        if idx is not None:
+            w, b = w[idx], b[idx]
+        out[f"{name}.weight"] = _t(w.T)
+        out[f"{name}.bias"] = _t(b)
+
+    def ln(name: str, p: Mapping[str, Any], idx=None) -> None:
+        s, b = np.asarray(p["scale"]), np.asarray(p["bias"])
+        if idx is not None:
+            s, b = s[idx], b[idx]
+        out[f"{name}.weight"] = _t(s)
+        out[f"{name}.bias"] = _t(b)
+
+    lin("feature_extractor_video.proj", tree["proj"])
+    out["encoder.pos_conv.0.weight"] = _t(np.asarray(tree["pos_conv"]["w"]).transpose(2, 1, 0))
+    out["encoder.pos_conv.0.bias"] = _t(tree["pos_conv"]["b"])
+    ln("encoder.layer_norm", tree["ln_post" if cfg.layer_norm_first else "ln_pre"])
+    blocks = tree["blocks"]
+    for i in range(cfg.n_layers):
+        p = f"encoder.layers.{i}"
+        for ours, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "out_proj")):
+            lin(f"{p}.self_attn.{name}", blocks[ours], i)
+        ln(f"{p}.self_attn_layer_norm", blocks["attn_ln"], i)
+        lin(f"{p}.fc1", blocks["mlp"]["fc1"], i)
+        lin(f"{p}.fc2", blocks["mlp"]["fc2"], i)
+        ln(f"{p}.final_layer_norm", blocks["mlp_ln"], i)
+    if cfg.audio_feat_dim is not None:
+        lin("feature_extractor_audio.proj", tree["proj_audio"])
+        ln("layer_norm", tree["fuse_ln"])
+        if "post_proj" in tree:
+            lin("post_extract_proj", tree["post_proj"])
     return out

@@ -1,5 +1,5 @@
-"""Training steps: CE fine-tune and knowledge distillation, plus the
-teacher-forced eval step.
+"""Training steps: CE fine-tune, knowledge distillation and the audio-visual
+step, plus the teacher-forced eval steps.
 
 Port of ``whisper_flamingo_tpu/training/steps.py``. Each ``make_*`` function returns
 ``step(state, batch) -> (state, metrics)`` (the KD steps take the frozen
@@ -13,14 +13,17 @@ teacher model as a second argument):
   ``loss = alpha * CE + beta * T^2 * KL(teacher || student)``;
 - family E (prompt distillation): the teacher reads the prompted token
   stream, the student the unprompted one, the teacher's logits moved onto
-  the student's label positions.
+  the student's label positions;
+- the audio-visual step (``make_av_train_step``, ``step(state, video,
+  batch, generator)``): the AV-HuBERT trunk's features as the gated
+  x-attn stream, the Whisper encoder frozen (forward only), modality
+  dropout from one draw of the step's ``torch.Generator`` per batch.
 
 The step runs the forward in the compute dtype over the fp32 masters,
 backpropagates (through the flash64 backward kernel when the encoder
 trains), and updates the parameters in place through the state's
 optimizer (the analogue of JAX's donated state). Metrics are device
-tensors; reading one waits for the step. The AV step waits for the AV
-slice.
+tensors; reading one waits for the step.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..models.avhubert import avhubert_encoder_apply
 from ..models.dims import ModelDimensions
 from ..models.whisper import Whisper, decoder_apply, encoder_apply
 from .optim import Mask, WhisperOptimizer
@@ -229,6 +233,85 @@ def make_prompt_kd_train_step(
         loss = alpha * ce + beta * kd
         state = _apply_update(state, loss)
         return state, {"loss": loss.detach(), "ce": ce.detach(), "kd": kd.detach()}
+
+    return step
+
+
+def _apply_av_encoder(video, batch: Dict[str, torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """The trunk over the batch's ``video`` (and ``fbank`` with an audio
+    trunk), with the per-row modality masks of a mixed batch
+    (``video_lens`` / ``fbank_lens`` of 0 mark a row without that stream);
+    a row with no modality at all gets zero conditioning, not the
+    conv-bias / LayerNorm output of its zero padding."""
+    cfg = video.cfg
+    vlens, flens = batch.get("video_lens"), batch.get("fbank_lens")
+    use_audio = cfg.audio_feat_dim is not None
+    vfeats = avhubert_encoder_apply(
+        video, cfg, video=batch["video"], audio=batch.get("fbank") if use_audio else None,
+        video_mask=(vlens > 0) if vlens is not None else None,
+        audio_mask=(flens > 0) if (use_audio and flens is not None) else None,
+        dtype=dtype,
+    )
+    if vlens is not None:
+        has_any = vlens > 0
+        if use_audio and flens is not None and "fbank" in batch:
+            has_any = has_any | (flens > 0)
+        vfeats = vfeats * has_any.to(vfeats.dtype)[:, None, None]
+    return vfeats
+
+
+def make_av_train_step(
+    dims: ModelDimensions, *, prob_av: float = 0.5, prob_a: float = 0.25,
+    freeze_video: bool = True, dtype: torch.dtype = torch.bfloat16, remat=True,
+) -> Callable:
+    """Audio-visual gated x-attn step (Whisper-Flamingo step 2: the Whisper
+    encoder and the AV-HuBERT trunk frozen, the gated layers learn):
+    ``step(state, video, batch, generator)`` with ``video`` the trunk
+    (:class:`..models.avhubert.VideoEncoder`).
+
+    Modality dropout: one ``u`` per batch from ``generator``; both streams
+    if u < prob_av, audio only (the video features zeroed) if u < prob_av +
+    prob_a, video only (the encoder features zeroed) otherwise. The encoder
+    runs forward only (no flash64 backward); the trunk's features are
+    detached under ``freeze_video``. A batch with ``fbank`` and a trunk with
+    an audio trunk feeds both streams to it (``--modalities avsr``)."""
+
+    def step(state: TrainState, video, batch: Dict[str, Any], generator: torch.Generator):
+        u = float(torch.rand((), generator=generator))
+        drop_video = prob_av <= u < prob_av + prob_a
+        drop_audio = u >= prob_av + prob_a
+        model = state.model
+        b = to_device(batch, model.device)
+        vfeats = _apply_av_encoder(video, b, dtype)
+        if freeze_video:
+            vfeats = vfeats.detach()
+        if drop_video:
+            vfeats = torch.zeros_like(vfeats)
+        feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat).detach()
+        if drop_audio:
+            feats = torch.zeros_like(feats)
+        logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, xt=vfeats[None],
+                                  dtype=dtype, remat=remat)
+        loss = ce_loss(logits, b["labels"])
+        return _apply_update(state, loss), {"loss": loss.detach()}
+
+    return step
+
+
+def make_av_eval_step(dims: ModelDimensions, *, dtype: torch.dtype = torch.float32) -> Callable:
+    """Teacher-forced AV eval: ``step(video, model, batch) -> (loss, argmax
+    tokens)``; the video stream goes through the gated x-attn as in
+    training, with no modality dropout. Bind ``video`` with
+    ``functools.partial`` for the Trainer's ``(model, batch)`` interface."""
+
+    @torch.no_grad()
+    def step(video, model: Whisper, batch: Dict[str, Any]):
+        b = to_device(batch, model.device)
+        vfeats = _apply_av_encoder(video, b, dtype)
+        feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype)
+        logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, xt=vfeats[None],
+                                  dtype=dtype)
+        return ce_loss(logits, b["labels"]), torch.argmax(logits, dim=-1)
 
     return step
 
