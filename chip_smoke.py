@@ -195,6 +195,35 @@ each printing one JSON line:
     written. (f) ``adakws_apply`` and ``reprogramming_apply`` at their
     default widths (d 768), card against CPU within 1e-4.
 
+19. parallel: data and tensor parallelism on the one card. (a) Four
+    gloo ranks share it on a 2 x 2 mesh (``parallel.distributed.spawn``;
+    the kernels are built once, in phase 1, before the ranks start), with
+    the Whisper-Flamingo at ``small``'s full width (one gated stream,
+    ``bert_dim`` 768, gates at 0.5, random weights from seed 0, fp32, TF32
+    off) on the bench batch (b8 of 30 s, 128 tokens; 4 rows a data rank,
+    6 heads a model rank): a CE step and a TransKD step whose losses are
+    within 1e-4 relative of one rank's on the whole batch and whose
+    gathered gradients are within 1e-4 of each one-rank gradient's largest
+    magnitude; greedy, beam 15, int8 greedy, and int8 greedy with the
+    decode-MLP kernel on the split MLP (``ENABLED``), on the bench
+    protocol, with the tokens of one rank. (b) Each rank's launches and
+    shapes: 12 flash64 forwards and 12 backwards at (4·6, 1500, 64) a CE
+    step, 12 forwards an encode, 12 decode-attention steps on (4 rows, D
+    384, 6 heads) an incremental step, 12 decode-MLP launches a decoder
+    pass with the switch on. (c) The same in bf16: finite losses, ms a
+    step and a greedy batch per rank, labelled as four ranks sharing one
+    card (gloo through the host: not a scaling figure). (d) One NCCL rank:
+    an ``all_reduce``, and a 1 x 1 mesh's Flamingo CE step bit-equal to the
+    no-mesh step. (e) ``parallel.dryrun.dryrun_multichip(4)`` on the card.
+    (f) First, in the parent, each kernel the ranks run against its plain
+    version at a model rank's shard shapes, with the tolerances of phases
+    3, 7 and 11: the decode-attention step on (4, 448, 384) and (60, 448,
+    384) caches with 6 heads, bf16 and fp32; the decode MLP at D 768 and
+    F 1536 (model index 0's slice of a whole MLP) with a zero fc2 bias, at
+    4 and 60 rows, bf16, int8 with bf16 x and int8 with fp32 x; flash64's
+    forward, lse forward and backward at (4·6, 1500, 64), bf16 and fp32.
+    Any failed rank or mismatch fails the phase.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
 throughout. Any failed phase raises, and the script exits non-zero.
@@ -1939,6 +1968,508 @@ def phase_av(torch, device="cuda", sizes=AV_SIZES, overrides=AV_OVERRIDES):
     return out
 
 
+# -- 19. data and tensor parallelism ------------------------------------------
+
+PAR_MESH = (2, 2)
+# (name, beam, quantize) of the fp32 decodes; the last runs the decode-MLP
+# kernel (``ENABLED``) on the model row's shard of the MLP
+PAR_DECODES = (("greedy", None, None), ("beam", "beam", None), ("int8_greedy", None, "int8"),
+               ("int8_greedy_mlp", None, "int8"))
+PAR_SIZES = dict(model="small", bert_dim=768, rows=BATCH, tokens=128, xt_len=64,
+                 sample_len=SAMPLE_LEN, beam=BEAM, bf16_steps=3)
+
+
+def _par_model(wt, sizes, device, gated=True, seed=0):
+    """The phase's Whisper-Flamingo: one gated stream, gates at 0.5, random
+    weights from ``seed`` (the same bits on every rank)."""
+    kw = dict(add_gated_x_attn=1, num_langs=1, bert_dim=sizes["bert_dim"]) if gated else {}
+    model = wt.load_model(sizes["model"], device=device, seed=seed, **kw)
+    if gated:
+        import torch
+
+        with torch.no_grad():
+            for blk in model.decoder.blocks:
+                blk.ff_gate.fill_(0.5)
+                for sub in blk.gated_x_attn_layers:
+                    sub.attn_gate.fill_(0.5)
+    return model
+
+
+def _par_batch(np, sizes):
+    """The bench batch (``_train_batch``) with one conditioning stream."""
+    batch = _train_batch(np, sizes["rows"])
+    batch["dec_input_ids"] = batch["dec_input_ids"][:, : sizes["tokens"]]
+    batch["labels"] = batch["labels"][:, : sizes["tokens"]]
+    rng = np.random.default_rng(1)
+    batch["xt"] = rng.standard_normal(
+        (1, sizes["rows"], sizes["xt_len"], sizes["bert_dim"])).astype(np.float32)
+    return batch
+
+
+def _par_mel(np, sizes):
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal((sizes["rows"], 80, 3000)) * 0.3).astype(np.float32)
+
+
+def _par_options(wt, sizes, eot, fp16, beam=None, quantize=None):
+    return wt.DecodingOptions(language="en", without_timestamps=True,
+                              sample_len=sizes["sample_len"], fp16=fp16,
+                              beam_size=sizes["beam"] if beam == "beam" else beam,
+                              suppress_tokens=f"-1,{eot}", quantize=quantize)
+
+
+def _par_steps(wt, sizes, device, kind, dtype, mesh=None):
+    """(model, step, batch, optimizer) of one CE or TransKD step, on
+    ``mesh`` (this rank's shard and rows) or whole."""
+    import numpy as np
+
+    from whisper_flamingo_tpu_torch.parallel.mesh import shard_batch, shard_params
+    from whisper_flamingo_tpu_torch.recipes.transkd_asr import init_student_from_teacher
+    from whisper_flamingo_tpu_torch.training.optim import whisper_optimizer
+    from whisper_flamingo_tpu_torch.training.steps import make_ce_train_step, make_kd_train_step
+
+    batch = _par_batch(np, sizes)
+    teacher = None
+    model = _par_model(wt, sizes, device)
+    if kind == "kd":
+        teacher, model = model, init_student_from_teacher(
+            model, _par_model(wt, sizes, device, gated=False, seed=1))
+        step = make_kd_train_step(model.dims, teacher_uses_xt=True, dtype=dtype, remat=False)
+    else:
+        step = make_ce_train_step(model.dims, use_xt=True, dtype=dtype, remat=False)
+    tx, _ = whisper_optimizer(model, 1e-5, total_steps=1000)
+    if mesh is not None:
+        shard_params(model, mesh)
+        tx.shard(mesh, model.tp_dims)
+        if teacher is not None:
+            shard_params(teacher, mesh)
+        batch = shard_batch(batch, mesh)
+    if teacher is not None:
+        kd_step = step
+
+        def step(state, b):
+            return kd_step(state, teacher, b)
+    return model, step, batch, tx
+
+
+def _captured_grads(tx):
+    """The gradients the optimizer applies (after the data-parallel
+    average), by name, filled by the next step."""
+    grads = {}
+    grads_of = tx._grads
+
+    def capture():
+        out = grads_of()
+        grads.update((n, g.detach().clone()) for n, g in zip(tx.names, out))
+        return out
+
+    tx._grads = capture
+    return grads
+
+
+class _Launches:
+    """Counts and shapes of the kernel launches on this rank: flash64's
+    forward (the (B*H, T, 64) it ran at) and backward, the decode-attention
+    step (the cache width and heads). The wrappers carry the counters the
+    kernels' own code increments."""
+
+    def __init__(self, flash64, decode_attn):
+        self.mods = flash64, decode_attn
+        self.saved = flash64.flash64_forward, flash64.flash64_backward, decode_attn.fused_step
+        fwd, bwd, dstep = self.saved
+        seen = self.seen = {"flash64_fwd": set(), "flash64_bwd": set(), "decode_attn": set()}
+
+        def fwd_rec(qh, *a, **k):
+            seen["flash64_fwd"].add((qh.shape[0] * qh.shape[1], qh.shape[2], qh.shape[3]))
+            return fwd(qh, *a, **k)
+
+        def bwd_rec(qh, *a, **k):
+            seen["flash64_bwd"].add((qh.shape[0] * qh.shape[1], qh.shape[2], qh.shape[3]))
+            return bwd(qh, *a, **k)
+
+        def step_rec(q, k_raw, v_raw, k_cache, v_cache, offset, n_head):
+            seen["decode_attn"].add((k_cache.shape[0], k_cache.shape[-1], n_head))
+            return dstep(q, k_raw, v_raw, k_cache, v_cache, offset, n_head)
+
+        self.wrappers = fwd_rec, bwd_rec, step_rec
+        flash64.flash64_forward, flash64.flash64_backward, decode_attn.fused_step = self.wrappers
+        self.reset()
+
+    def reset(self):
+        from whisper_flamingo_tpu_torch.ops import decode_mlp
+
+        decode_mlp.fused_mlp.launches = 0
+        for w in self.wrappers:
+            w.launches = 0
+        self.wrappers[0].lse_launches = 0
+        for s in self.seen.values():
+            s.clear()
+
+    def read(self, torch):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        fwd, bwd, dstep = self.wrappers
+        from whisper_flamingo_tpu_torch.ops import decode_mlp
+
+        return {"flash64_fwd": fwd.launches, "flash64_bwd": bwd.launches,
+                "decode_attn": dstep.launches, "decode_mlp": decode_mlp.fused_mlp.launches,
+                "shapes": {k: sorted(v) for k, v in self.seen.items()}}
+
+    def restore(self):
+        flash64, decode_attn = self.mods
+        flash64.flash64_forward, flash64.flash64_backward, decode_attn.fused_step = self.saved
+
+
+def _worst_grad(got, want):
+    """(name, max |got - want| / max |want|) of the worst parameter."""
+    worst = ("", 0.0)
+    for name, w in want.items():
+        g = got[name].float()
+        w = w.to(g.device).float()
+        err = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        worst = max(worst, (name, err), key=lambda x: x[1])
+    return worst
+
+
+def _par_kernels_vs_plain(torch, dims, sizes):
+    """Each kernel the ranks run, against its plain version on the same card
+    inputs at a model rank's shard shapes, with the tolerances of phases 3,
+    7 and 11: the decode-attention step on (rows, T, D/tp) caches with H/tp
+    heads at greedy's and beam's rows; the decode MLP on model index 0's
+    shard of a whole MLP (fc1's first F/tp outputs, fc2's first F/tp
+    inputs, int8 scales of the whole weights) with a zero fc2 bias; flash64's
+    forward, and its lse forward and backward, at (rows * H/tp, T, 64).
+    Returns (rows, failures)."""
+    from whisper_flamingo_tpu_torch.ops import decode_attn, decode_mlp, flash64
+    from whisper_flamingo_tpu_torch.ops.quant import quantize_linear_params
+
+    n_data, n_model = PAR_MESH
+    rows = sizes["rows"] // n_data
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    out, failures = [], []
+
+    def check(row, ok):
+        out.append(row)
+        if not ok:
+            failures.append(f"{row['kernel']} vs plain at the shard: {row}")
+
+    heads, d, t_max = dims.n_text_head // n_model, dims.n_text_state // n_model, dims.n_text_ctx
+    off = sizes["sample_len"] + 2  # the last step of the bench protocol
+    for dtype_name, tol in (("bfloat16", 2e-2), ("float32", 1e-5)):
+        dtype = getattr(torch, dtype_name)
+        for b in (rows, rows * sizes["beam"]):
+            q, kn, vn = (randn(b, 1, d).to(dtype) for _ in range(3))
+            kc, vc = ((randn(b, t_max, d) * 0.5).to(dtype) for _ in range(2))
+            kc2, vc2 = kc.clone(), vc.clone()
+            got, _, _ = decode_attn.fused_step(q, kn, vn, kc, vc, off, heads)
+            ref = decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, off, heads)
+            err, cache_err = max_err(got, ref), max(max_err(kc, kc2), max_err(vc, vc2))
+            check({"kernel": "decode_attn", "dtype": dtype_name, "cache": [b, t_max, d],
+                   "heads": heads, "max_abs_err": err, "cache_max_abs_err": cache_err,
+                   "tol": tol},
+                  torch.isfinite(got).all().item() and err <= tol and cache_err == 0.0)
+
+    dm, f = dims.n_text_state, 4 * dims.n_text_state
+    f_local = f // n_model
+    for dtype_name, int8, tol in (("bfloat16", False, 1e-2), ("bfloat16", True, 1e-2),
+                                  ("float32", True, 1e-5)):
+        dtype = getattr(torch, dtype_name)
+        w1, w2 = randn(f, dm) * dm ** -0.5, randn(dm, f) * f ** -0.5
+        b1 = (randn(f) * 0.1).to(dtype)
+        if int8:
+            (w1, s1), (w2, s2) = quantize_linear_params(w1), quantize_linear_params(w2)
+            s1 = s1[:f_local].contiguous()
+        else:
+            w1, w2, s1, s2 = w1.to(dtype), w2.to(dtype), None, None
+        w1, b1, w2 = w1[:f_local].contiguous(), b1[:f_local].contiguous(), w2[:, :f_local].contiguous()
+        b2 = torch.zeros(dm, dtype=dtype, device="cuda")
+        for b in (rows, rows * sizes["beam"]):
+            x = randn(b, dm).to(dtype)
+            got = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+            again = decode_mlp._launch(x, w1, b1, w2, b2, s1, s2)
+            ref = decode_mlp.fused_mlp_plain(x, w1, b1, w2, b2, s1, s2)
+            scale = max(ref.float().abs().max().item(), 1.0)
+            err = max_err(got, ref)
+            check({"kernel": "decode_mlp", "dtype": dtype_name,
+                   "weights": "int8" if int8 else dtype_name, "rows": b, "d": dm, "f": f_local,
+                   "max_abs_err": err, "scale": scale, "rel_tol": tol,
+                   "same_bits_twice": torch.equal(got, again)},
+                  torch.isfinite(got).all().item() and err <= tol * scale
+                  and torch.equal(got, again))
+
+    h, t = dims.n_audio_head // n_model, dims.n_audio_ctx
+    for dtype_name, fwd_tol, lse_fwd_tol, rel in (("bfloat16", 1e-2, 2e-2, 1e-2),
+                                                  ("float32", 1e-5, 1e-5, 1e-4)):
+        dtype = getattr(torch, dtype_name)
+        q, k = ((randn(rows, h, t, 64) * 64 ** -0.25).to(dtype) for _ in range(2))
+        v, do = (randn(rows, h, t, 64).to(dtype) for _ in range(2))
+        o = flash64.flash64_forward(q, k, v)
+        o_lse, lse = flash64.flash64_forward(q, k, v, with_lse=True)
+        grads = flash64.flash64_backward(q, k, v, o_lse, lse, do)
+        o_ref, lse_ref = flash64.flash64_forward_plain(q, k, v, with_lse=True)
+        g_ref = flash64.flash64_backward_plain(q, k, v, o_lse, lse, do)
+        errs = {n: max_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), grads, g_ref)}
+        scales = {n: max(r.float().abs().max().item(), 1.0)
+                  for n, r in zip(("dq", "dk", "dv"), g_ref)}
+        row = {"kernel": "flash64", "dtype": dtype_name, "shape": [rows * h, t, 64],
+               "o_max_abs_err": max_err(o, o_ref), "o_tol": fwd_tol,
+               "lse_o_max_abs_err": max_err(o_lse, o_ref), "lse_o_tol": lse_fwd_tol,
+               "lse_max_abs_err": max_err(lse, lse_ref), "lse_tol": 1e-4,
+               "bwd_max_abs_err": errs, "bwd_scale": scales, "bwd_rel_tol": rel}
+        check(row, torch.isfinite(o).all().item() and row["o_max_abs_err"] <= fwd_tol
+              and row["lse_o_max_abs_err"] <= lse_fwd_tol and row["lse_max_abs_err"] <= 1e-4
+              and all(errs[n] <= rel * scales[n] for n in errs))
+    torch.cuda.synchronize()
+    return out, failures
+
+
+def _parallel_rank(rank, device, sizes, ref_path, eot):
+    """One rank of the 2 x 2 mesh (gloo; the ranks share the card): the fp32
+    CE and TransKD steps, greedy, beam and int8 greedy decode, then the bf16
+    step and decode timed. Rank 0 holds the gathered gradients against the
+    one-rank reference."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.ops import decode_attn, decode_mlp, flash64
+    from whisper_flamingo_tpu_torch.parallel.mesh import gather_named, make_mesh, shard_params
+    from whisper_flamingo_tpu_torch.training.steps import TrainState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*PAR_MESH)
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True) if rank == 0 else None
+    launches = _Launches(flash64, decode_attn)
+    out = {"rank": rank, "data_index": mesh.data_index, "model_index": mesh.model_index}
+    try:
+        for kind in ("ce", "kd"):
+            model, step, batch, tx = _par_steps(wt, sizes, device, kind, torch.float32, mesh)
+            grads = _captured_grads(tx)
+            launches.reset()
+            _, metrics = step(TrainState.create(model, tx), batch)
+            row = {"loss": float(metrics["loss"]), "launches": launches.read(torch)}
+            full = gather_named(grads, model.tp_dims, mesh)
+            if ref is not None:
+                row["worst_grad"] = _worst_grad(full, ref[kind])
+            out[kind] = row
+            del model, step, batch, tx, grads, full
+            torch.cuda.empty_cache() if torch.cuda.is_available() else None
+
+        mel = _par_mel(np, sizes)
+        xt = _par_batch(np, sizes)["xt"]
+        model = shard_params(_par_model(wt, sizes, device), mesh)
+        for name, beam, quantize in PAR_DECODES:
+            task = wt.DecodingTask(model, _par_options(wt, sizes, eot, False, beam, quantize))
+            decode_mlp.ENABLED = name == "int8_greedy_mlp"
+            launches.reset()
+            try:
+                res = task.run(mel, xt=xt)
+            finally:
+                decode_mlp.ENABLED = False
+            out[name] = {"tokens": [r.tokens for r in res],
+                         "avg_logprob": [r.avg_logprob for r in res],
+                         "launches": launches.read(torch)}
+        del model, task
+
+        # bf16: the step and a decode batch timed (every rank on the one card)
+        model, step, batch, tx = _par_steps(wt, sizes, device, "ce", torch.bfloat16, mesh)
+        state, losses, ms = TrainState.create(model, tx), [], []
+        for _ in range(sizes["bf16_steps"]):
+            sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        del model, step, batch, tx, state
+        model = shard_params(_par_model(wt, sizes, device), mesh)
+        task = wt.DecodingTask(model, _par_options(wt, sizes, eot, True))
+        decode_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = task.run(mel, xt=xt)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        out["bf16"] = {"losses": losses, "step_ms": ms,
+                       "ms_per_step": statistics.median(ms[1:]) if len(ms) > 1 else ms[0],
+                       "ms_per_batch": decode_ms[-1], "decode_ms": decode_ms,
+                       "tokens_finite": all(np.isfinite(r.avg_logprob) for r in res)}
+    finally:
+        launches.restore()
+    return out
+
+
+def _nccl_rank(rank, device, sizes):
+    """One NCCL rank: a 1 x 1 mesh's Flamingo CE step (the gated group
+    trains) against the no-mesh step from the same weights, bit for bit,
+    and one all_reduce through NCCL."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_params
+    from whisper_flamingo_tpu_torch.training.optim import whisper_flamingo_optimizer
+    from whisper_flamingo_tpu_torch.training.steps import TrainState, make_ce_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    probe = torch.full((4,), 2.0, device=device)
+    dist.all_reduce(probe)
+    runs = []
+    for mesh in (None, make_mesh(1, 1)):
+        model = _par_model(wt, sizes, device)
+        tx, _ = whisper_flamingo_optimizer(model, 1e-5, total_steps=1000)
+        grads = _captured_grads(tx)
+        batch = _par_batch(np, sizes)
+        if mesh is not None:
+            shard_params(model, mesh)
+            tx.shard(mesh, model.tp_dims)
+            batch = shard_batch(batch, mesh)
+        step = make_ce_train_step(model.dims, use_xt=True, dtype=torch.float32, remat=False)
+        _, metrics = step(TrainState.create(model, tx), batch)
+        runs.append((metrics["loss"].item(), {n: g.cpu() for n, g in grads.items()}))
+        del model, tx, step
+    (loss0, g0), (loss1, g1) = runs
+    return {"backend": dist.get_backend(), "all_reduce": probe.tolist(),
+            "loss_no_mesh": loss0, "loss_1x1": loss1, "n_grads": len(g0),
+            "bit_equal": loss0 == loss1 and all(torch.equal(g0[n], g1[n]) for n in g0)}
+
+
+def phase_parallel(torch, device="cuda", sizes=PAR_SIZES):
+    """19: data and tensor parallelism (see the module docstring); with
+    ``device="cpu"`` and debug ``sizes`` it rehearses on the CPU (gloo
+    ranks, the plain kernels, no launches to count)."""
+    import numpy as np
+
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.ops import decode_mlp
+    from whisper_flamingo_tpu_torch.parallel.distributed import spawn
+    from whisper_flamingo_tpu_torch.parallel.dryrun import dryrun_multichip
+    from whisper_flamingo_tpu_torch.tokenizer import get_tokenizer
+    from whisper_flamingo_tpu_torch.training.steps import TrainState
+
+    t_phase = time.perf_counter()
+    on_card = device != "cpu"
+    eot = get_tokenizer(True, language="en", task="transcribe").eot
+    dims = wt.MODEL_DIMS[sizes["model"]]
+    n_data, n_model = PAR_MESH
+    failures, at_shard = [], []
+    if on_card:  # on the CPU the wrappers are their plain versions
+        at_shard, failures = _par_kernels_vs_plain(torch, dims, sizes)
+    # the one-rank reference: the whole batch, no mesh
+    ref, one = {}, {}
+    for kind in ("ce", "kd"):
+        model, step, batch, tx = _par_steps(wt, sizes, device, kind, torch.float32)
+        grads = _captured_grads(tx)
+        _, metrics = step(TrainState.create(model, tx), batch)
+        one[kind] = float(metrics["loss"])
+        ref[kind] = {n: g.cpu() for n, g in grads.items()}
+        del model, step, batch, tx, grads
+    mel, xt = _par_mel(np, sizes), _par_batch(np, sizes)["xt"]
+    model = _par_model(wt, sizes, device)
+    for name, beam, quantize in PAR_DECODES:
+        task = wt.DecodingTask(model, _par_options(wt, sizes, eot, False, beam, quantize))
+        decode_mlp.ENABLED = name == "int8_greedy_mlp"
+        try:
+            one[name] = [r.tokens for r in task.run(mel, xt=xt)]
+        finally:
+            decode_mlp.ENABLED = False
+    del model, task
+    if on_card:
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grads.pt")
+        torch.save(ref, path)
+        del ref
+        t0 = time.perf_counter()
+        ranks = spawn(_parallel_rank, n_data * n_model, (sizes, path, eot), device=device,
+                      threads=0 if on_card else 1)
+        t_ranks = time.perf_counter() - t0
+
+    rank0 = ranks[0]
+    for kind in ("ce", "kd"):
+        for r in ranks:
+            rel = abs(r[kind]["loss"] - one[kind]) / abs(one[kind])
+            if rel > 1e-4:
+                failures.append(f"{kind} loss rank {r['rank']}: {r[kind]['loss']} vs {one[kind]}")
+        if rank0[kind]["worst_grad"][1] > 1e-4:
+            failures.append(f"{kind} gradient {rank0[kind]['worst_grad']}")
+    for name, _, _ in PAR_DECODES:
+        for r in ranks:
+            if r[name]["tokens"] != one[name]:
+                failures.append(f"{name} tokens differ on rank {r['rank']}")
+    for r in ranks:
+        if not (all(np.isfinite(r["bf16"]["losses"])) and r["bf16"]["tokens_finite"]):
+            failures.append(f"bf16 not finite on rank {r['rank']}: {r['bf16']['losses']}")
+    rows_local, heads_local = sizes["rows"] // n_data, dims.n_audio_head // n_model
+    n_steps = sizes["sample_len"] - 1
+    if on_card:
+        want_fwd = [(rows_local * heads_local, dims.n_audio_ctx, 64)]
+        want_step = [(rows_local, dims.n_text_state // n_model, dims.n_text_head // n_model)]
+        for r in ranks:
+            ce = r["ce"]["launches"]
+            if (ce["flash64_fwd"], ce["flash64_bwd"]) != (dims.n_audio_layer,) * 2 \
+                    or ce["shapes"]["flash64_fwd"] != want_fwd \
+                    or ce["shapes"]["flash64_bwd"] != want_fwd:
+                failures.append(f"CE launches rank {r['rank']}: {ce}")
+            for name in ("greedy", "int8_greedy", "int8_greedy_mlp"):
+                got = r[name]["launches"]
+                mlp = dims.n_text_layer * (n_steps + 1) if name.endswith("mlp") else 0
+                if got["flash64_fwd"] != dims.n_audio_layer \
+                        or got["decode_attn"] != dims.n_text_layer * n_steps \
+                        or got["decode_mlp"] != mlp \
+                        or got["shapes"]["decode_attn"] != want_step:
+                    failures.append(f"{name} launches rank {r['rank']}: {got}")
+            if r["beam"]["launches"]["decode_attn"] != dims.n_text_layer * n_steps:
+                failures.append(f"beam launches rank {r['rank']}: {r['beam']['launches']}")
+
+    # one NCCL rank (gloo on the CPU rehearsal): the backend of real multi-card runs
+    t0 = time.perf_counter()
+    (one_by_one,) = spawn(_nccl_rank, 1, (sizes,), device=device, threads=0 if on_card else 1)
+    t_nccl = time.perf_counter() - t0
+    if not one_by_one["bit_equal"] or one_by_one["all_reduce"] != [2.0] * 4 \
+            or (on_card and one_by_one["backend"] != "nccl"):
+        failures.append(f"1x1 mesh: {one_by_one}")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device=device)
+    t_dry = time.perf_counter() - t0
+
+    smi = smi_line() if on_card else "cpu"
+    row = {
+        "phase": "parallel", "mesh": f"{n_data}x{n_model}", "device": smi,
+        "backend": "gloo, four ranks sharing one card" if on_card else "gloo, CPU",
+        "model": sizes["model"], "rows": sizes["rows"], "tokens": sizes["tokens"],
+        "ce_loss": {"one_rank": one["ce"], "ranks": [r["ce"]["loss"] for r in ranks]},
+        "ce_worst_grad": rank0["ce"]["worst_grad"],
+        "kd_loss": {"one_rank": one["kd"], "ranks": [r["kd"]["loss"] for r in ranks]},
+        "kd_worst_grad": rank0["kd"]["worst_grad"],
+        "kernels_vs_plain_at_shard": at_shard,
+        "tokens_equal": {n: all(r[n]["tokens"] == one[n] for r in ranks)
+                         for n, _, _ in PAR_DECODES},
+        "launches_per_rank": {n: rank0[n]["launches"]
+                              for n in ("ce", "kd", *(d[0] for d in PAR_DECODES))},
+        "bf16_shared_card": {
+            "label": "four ranks sharing one card over gloo: not a scaling figure",
+            "ms_per_step": [r["bf16"]["ms_per_step"] for r in ranks],
+            "ms_per_decode_batch": [r["bf16"]["ms_per_batch"] for r in ranks],
+            "losses": rank0["bf16"]["losses"]},
+        "nccl_1x1": one_by_one, "dryrun": dry,
+        "seconds": {"reference": t_ref, "ranks": t_ranks, "nccl": t_nccl, "dryrun": t_dry,
+                    "total": time.perf_counter() - t_phase},
+    }
+    emit(row)
+    if failures:
+        raise AssertionError("parallel: " + "; ".join(failures))
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2075,6 +2606,10 @@ def main() -> int:
     # -- 18. the audio-visual path and the legacy modules ----------------------
     phase_av(torch)
     mark("18")
+
+    # -- 19. data and tensor parallelism ---------------------------------------
+    phase_parallel(torch)
+    mark("19")
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -44,6 +44,8 @@ import whisper_flamingo_tpu_torch.recipes.keyword_stats
 import whisper_flamingo_tpu_torch.models.visual, whisper_flamingo_tpu_torch.models.avhubert
 import whisper_flamingo_tpu_torch.models.legacy
 import whisper_flamingo_tpu_torch.recipes.av_train, whisper_flamingo_tpu_torch.recipes.decode_av
+import whisper_flamingo_tpu_torch.parallel.mesh, whisper_flamingo_tpu_torch.parallel.distributed
+import whisper_flamingo_tpu_torch.parallel.tp, whisper_flamingo_tpu_torch.parallel.dryrun
 from whisper_flamingo_tpu_torch.config import TrainConfig
 from whisper_flamingo_tpu_torch.recipes.common import build_conditioner
 # the offline conditioner (no HF cache: HF_HOME is an empty directory)

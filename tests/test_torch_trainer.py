@@ -27,6 +27,7 @@ from whisper_flamingo_tpu.training import trainer as jtrainer
 
 from whisper_flamingo_tpu_torch.config import TrainConfig
 from whisper_flamingo_tpu_torch.convert import params_from_jax
+from whisper_flamingo_tpu_torch.parallel.mesh import Mesh
 from whisper_flamingo_tpu_torch.data.collator import WhisperCollator
 from whisper_flamingo_tpu_torch.data.dataset import DataLoader, SpeechDataset, SyntheticAsrSource
 from whisper_flamingo_tpu_torch.data.samplers import SortedBatchSampler
@@ -93,8 +94,11 @@ def test_trainer_fit_writes_metrics_and_checkpoints(tmp_path):
     assert {r.get("phase") for r in recs} >= {"preval", "final"}
     assert glob.glob(str(tmp_path / "ckpt" / "smoke" / "step-*.pt"))
     assert os.path.exists(tmp_path / "ckpt" / "smoke" / "last.pt")
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg=cfg, dims=TINY, train_step=None, eval_step=None, mesh=object())
+    # a mesh is accepted: a 1 x 1 mesh marks the state and shards nothing
+    mesh = Mesh(1, 1, 0, {})
+    meshed = Trainer(cfg=cfg, dims=TINY, train_step=None, eval_step=None, mesh=mesh)
+    assert meshed.shard_state(state) is state and state.model.mesh is mesh
+    assert all(p.shape == full.shape for p, full in zip(state.optimizer.params, state.optimizer.mu))
 
 
 def test_resume_is_bit_identical(tmp_path):

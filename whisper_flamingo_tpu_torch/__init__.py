@@ -30,7 +30,10 @@ on the card unless the config or an override says ``device=cpu``
 ``python3 chip_smoke.py`` drives it on the card. The package imports
 torch, numpy, tiktoken, regex and yaml, never JAX or the JAX package.
 
-Not ported yet (see ROADMAP.md): parallelism (DP / TP meshes).
+Data and tensor parallelism (``parallel/``: the rank bootstrap, the
+(data, model) mesh with the Megatron layout, the model's collectives, the
+multi-rank dry run) runs every training recipe and ``DecodingTask`` on a
+mesh of processes launched by ``torchrun``.
 """
 
 from __future__ import annotations

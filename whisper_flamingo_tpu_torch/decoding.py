@@ -26,6 +26,12 @@ take one length for every row, or a (N,) tensor of per-row lengths
 tokens, as JAX does (``transcribe`` turns it on): it changes which tokens
 the decoder sees, so it is output, not only a compile-count bound.
 
+Under a mesh (a model sliced by ``parallel.mesh.shard_params``) each data
+rank decodes its rows of the batch and :meth:`DecodingTask.run` returns
+every row, in the input order, on every rank; the ranks of a model row see
+the same all-reduced logits, so their beam bookkeeping stays in step with
+no broadcast.
+
 Left out: the alignment programs, and the one-hot beam reorder. A bf16 run
 (``fp16=True``) decodes with a bf16 copy of the weights made once per
 task; the encoder reads the model's own weights, cast per layer, as the
@@ -554,7 +560,20 @@ class DecodingTask:
     @torch.no_grad()
     def run(self, mel, xt=None) -> List[DecodingResult]:
         """``mel`` (B, n_mels, T) or precomputed features; ``xt`` optional
-        conditioning streams (n_langs, B, S, D) for the gated decoder."""
+        conditioning streams (n_langs, B, S, D) for the gated decoder. Under
+        data ranks each decodes its block of rows (a ragged batch padded
+        by repeating the last row) and the results are gathered."""
+        mesh = getattr(self.model, "mesh", None)
+        if mesh is None or mesh.n_data == 1:
+            return self._run(mel, xt)
+        from .parallel.mesh import DATA_AXIS, shard_batch
+
+        rows = shard_batch({"mel": mel} if xt is None else {"mel": mel, "xt": xt}, mesh)
+        local = self._run(rows["mel"], rows.get("xt"))
+        gathered = mesh.all_gather_object(local, DATA_AXIS)
+        return [r for part in gathered for r in part][: len(mel)]
+
+    def _run(self, mel, xt=None) -> List[DecodingResult]:
         tokenizer = self.tokenizer
         dev = self.device
         mel = torch.as_tensor(mel).to(dev)

@@ -25,7 +25,18 @@ that tree and tensors, with the JAX package's names and numerics:
   and with ``quantize_self`` the self cache int8 with per-(token, head)
   scales (int8kv);
 - with ``ops.decode_mlp.ENABLED`` the cached decoder's MLP goes through
-  the streaming decode-MLP kernel (:func:`..ops.decode_mlp.fused_mlp`).
+  the streaming decode-MLP kernel (:func:`..ops.decode_mlp.fused_mlp`);
+- tensor parallelism: on a model sliced by
+  :func:`..parallel.mesh.shard_params` each split module carries the mesh
+  (``module.tp``). The apply functions then take the local head count and
+  width from it (the d_head scale is unchanged), put
+  :func:`..parallel.tp.copy_to_tp` before the column-parallel projections
+  and :func:`..parallel.tp.reduce_from_tp` after the row-parallel ones
+  (the replicated bias after the reduction), look tokens up in a
+  vocabulary-split embedding and gather vocabulary-split logits (or leave
+  them split, ``gather_logits=False``, for the vocabulary-parallel
+  cross-entropy). The decoder's cross-attention is replicated and takes no
+  collective. With no mesh every collective is the identity.
 
 Layers are a ``ModuleList`` looped in Python (the JAX package stacked them
 for ``lax.scan``). The decode caches are dicts of stacked tensors:
@@ -79,6 +90,8 @@ from ..ops.quant import (
     quantize_tokenwise_kv,
     quantized_matmul,
 )
+from ..parallel.mesh import MODEL_AXIS
+from ..parallel.tp import copy_to_tp, gather_from_tp, reduce_from_tp, vocab_embedding
 from ..utils import resolve_device
 from .dims import ModelDimensions
 
@@ -275,6 +288,31 @@ def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, p.weight.to(x.dtype), b)
 
 
+def _tp(p: nn.Module):
+    """The mesh of a module the model axis splits (``None`` when whole)."""
+    return getattr(p, "tp", None)
+
+
+def local_heads(p: MultiHeadAttention, n_head: int) -> int:
+    """The heads of attention ``p`` on this rank: all of them, or
+    ``n_head / n_model`` when the model axis splits it."""
+    tp = _tp(p)
+    return n_head if tp is None else n_head // tp.n_model
+
+
+def row_linear(p: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel (input-split) dense layer: this rank's partial
+    product (int8 ``w_q``/``w_s`` as in :func:`linear`), summed over the
+    model axis, then the replicated bias once. Without ``tp`` it is
+    :func:`linear`."""
+    if tp is None:
+        return linear(p, x)
+    w_q = getattr(p, "w_q", None)
+    y = quantized_matmul(x, w_q, p.w_s) if w_q is not None else F.linear(x, p.weight.to(x.dtype))
+    y = reduce_from_tp(y, tp)
+    return y if p.bias is None else y + p.bias.to(x.dtype)
+
+
 def conv1d(p: nn.Conv1d, x: torch.Tensor, stride: int) -> torch.Tensor:
     """1-D conv over time, (B, C, T) layout, padding 1."""
     return F.conv1d(x, p.weight.to(x.dtype), p.bias.to(x.dtype), stride=stride, padding=1)
@@ -304,12 +342,16 @@ def attention_block(
     ``k_override``/``v_override`` are cached head-split (B, H, T, Dh) slabs
     with K pre-scaled (int8 with per-head ``k_scale``/``v_scale`` in the
     int8 modes). ``return_qk`` (no override) also returns the fp32
-    logits, as ``(out, logits)``.
+    logits, as ``(out, logits)``. ``n_head`` is the model's count; a
+    split ``p`` runs its local heads.
 
     Beam grouping: when the slab batch is smaller than the query batch
     (beam search shares one audio stream across ``G`` beams) the beam axis
     folds into the query-length axis, so the shared slab is read once per
     audio instead of once per beam."""
+    tp = _tp(p)
+    n_head = local_heads(p, n_head)
+    x = copy_to_tp(x, tp)
     q = linear(p.query, x)
     if k_override is not None:
         bq, t, d = q.shape
@@ -320,18 +362,19 @@ def attention_block(
             out = out.reshape(bq, t, d)
         else:
             out = xa_qkv_attention(q, k_override, v_override, n_head, k_scale, v_scale)
-        return linear(p.out, out)
-    src = x if kv_src is None else kv_src
+        return row_linear(p.out, out, tp)
+    src = x if kv_src is None else copy_to_tp(kv_src, tp)
     k = linear(p.key, src)
     v = linear(p.value, src)
     if return_qk:
         out, qk = qkv_attention(q, k, v, n_head, mask=mask, return_qk=True)
-        return linear(p.out, out), qk
-    return linear(p.out, qkv_attention(q, k, v, n_head, mask=mask, backend=backend))
+        return row_linear(p.out, out, tp), qk
+    return row_linear(p.out, qkv_attention(q, k, v, n_head, mask=mask, backend=backend), tp)
 
 
 def mlp_block(p: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    return linear(p[2], gelu(linear(p[0], x)))
+    tp = _tp(p)
+    return row_linear(p[2], gelu(linear(p[0], copy_to_tp(x, tp))), tp)
 
 
 def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -476,7 +519,8 @@ def embed_tokens_as_xt(params: Whisper, dims: ModelDimensions, tokens: torch.Ten
     token ids -> (1, B, S, n_text_state), to pass as ``xt`` (the legacy
     "keyword" / "mix" decoder modes, which condition the gated x-attn on
     embedded keyword tokens; :func:`_prepare_xt` adds the positions)."""
-    return params.decoder.token_embedding.weight[tokens].to(dtype)[None]
+    dec = params.decoder
+    return vocab_embedding(dec.token_embedding.weight, tokens, _tp(dec)).to(dtype)[None]
 
 
 @torch.no_grad()
@@ -496,27 +540,34 @@ def init_cache(
     head over (T, Dh): ``xa_k_s``/``xa_v_s`` (L, B, H, 1, 1) and
     ``xt_k_s``/``xt_v_s`` (L, n_langs, B, H, 1, 1). With ``quantize_self``
     (int8kv) the self cache is int8 too, with per-(token, head) scales
-    ``k_s``/``v_s`` (L, B, T, H), zero where nothing is written yet."""
+    ``k_s``/``v_s`` (L, B, T, H), zero where nothing is written yet.
+
+    Under tensor parallelism the self cache and the gated slabs hold this
+    rank's heads (D / n_model wide); the audio slabs are whole (the
+    cross-attention is replicated)."""
     dec = params.decoder
     L, D, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
     B = audio_features.shape[0]
     T = max_len or dims.n_text_ctx
-    scale = (D // H) ** -0.25
+    dh = D // H
+    scale = dh ** -0.25
+    h_self = local_heads(dec.blocks[0].attn, H)
+    h_xa = local_heads(dec.blocks[0].cross_attn, H)
     dev = audio_features.device
     xa = audio_features.to(dtype)
     kdt = torch.int8 if quantize else torch.float32  # fp32 holds compute-dtype values
     vdt = torch.int8 if quantize else dtype
     sdt = torch.int8 if quantize_self else dtype
-    ta, dh = xa.shape[1], D // H
+    ta = xa.shape[1]
     cache: Cache = {
-        "k": torch.zeros((L, B, T, D), dtype=sdt, device=dev),
-        "v": torch.zeros((L, B, T, D), dtype=sdt, device=dev),
-        "xa_k": torch.empty((L, B, H, ta, dh), dtype=kdt, device=dev),
-        "xa_v": torch.empty((L, B, H, ta, dh), dtype=vdt, device=dev),
+        "k": torch.zeros((L, B, T, h_self * dh), dtype=sdt, device=dev),
+        "v": torch.zeros((L, B, T, h_self * dh), dtype=sdt, device=dev),
+        "xa_k": torch.empty((L, B, h_xa, ta, dh), dtype=kdt, device=dev),
+        "xa_v": torch.empty((L, B, h_xa, ta, dh), dtype=vdt, device=dev),
     }
     if quantize_self:
-        cache["k_s"] = torch.zeros((L, B, T, H), dtype=torch.float32, device=dev)
-        cache["v_s"] = torch.zeros((L, B, T, H), dtype=torch.float32, device=dev)
+        cache["k_s"] = torch.zeros((L, B, T, h_self), dtype=torch.float32, device=dev)
+        cache["v_s"] = torch.zeros((L, B, T, h_self), dtype=torch.float32, device=dev)
 
     def store(name: str, idx, k: torch.Tensor, v: torch.Tensor) -> None:
         if quantize:
@@ -527,24 +578,25 @@ def init_cache(
 
     if quantize:
         for key in ("xa_k_s", "xa_v_s"):
-            cache[key] = torch.empty((L, B, H, 1, 1), dtype=torch.float32, device=dev)
+            cache[key] = torch.empty((L, B, h_xa, 1, 1), dtype=torch.float32, device=dev)
     for l, blk in enumerate(dec.blocks):
-        store("xa", l, head_split_kv(linear(blk.cross_attn.key, xa), H) * scale,
-              head_split_kv(linear(blk.cross_attn.value, xa), H))
+        store("xa", l, head_split_kv(linear(blk.cross_attn.key, xa), h_xa) * scale,
+              head_split_kv(linear(blk.cross_attn.value, xa), h_xa))
     if xt is not None and dec.blocks[0].gated:
         xt_p = _prepare_xt(params, dims, xt, dtype)  # (n_langs, B, S, D)
         n_langs, _, s, _ = xt_p.shape
-        cache["xt_k"] = torch.empty((L, n_langs, B, H, s, dh), dtype=kdt, device=dev)
-        cache["xt_v"] = torch.empty((L, n_langs, B, H, s, dh), dtype=vdt, device=dev)
+        h_xt = local_heads(dec.blocks[0].gated_x_attn_layers[0].attn, H)
+        cache["xt_k"] = torch.empty((L, n_langs, B, h_xt, s, dh), dtype=kdt, device=dev)
+        cache["xt_v"] = torch.empty((L, n_langs, B, h_xt, s, dh), dtype=vdt, device=dev)
         if quantize:
             for key in ("xt_k_s", "xt_v_s"):
-                cache[key] = torch.empty((L, n_langs, B, H, 1, 1), dtype=torch.float32,
+                cache[key] = torch.empty((L, n_langs, B, h_xt, 1, 1), dtype=torch.float32,
                                          device=dev)
         for l, blk in enumerate(dec.blocks):
             for i in range(n_langs):
                 attn = blk.gated_x_attn_layers[i].attn
-                store("xt", (l, i), head_split_kv(linear(attn.key, xt_p[i]), H) * scale,
-                      head_split_kv(linear(attn.value, xt_p[i]), H))
+                store("xt", (l, i), head_split_kv(linear(attn.key, xt_p[i]), h_xt) * scale,
+                      head_split_kv(linear(attn.value, xt_p[i]), h_xt))
         cache["xt"] = xt_p
     return cache
 
@@ -553,7 +605,7 @@ def lm_head_weight(params: Whisper, dtype: torch.dtype) -> torch.Tensor:
     """The tied embedding as the logits matmul's float32 operand: its
     ``dtype`` values, upcast (cached by :func:`prepare_decode_params`; in
     the int8 modes the int8 values, which the logits scale by
-    ``lm_head_s``)."""
+    ``lm_head_s``). Under a vocabulary split, this rank's rows."""
     dec = params.decoder
     cached = getattr(dec, "lm_head_f32", None)
     if cached is not None:
@@ -567,6 +619,7 @@ def decoder_apply(
     xt: Optional[torch.Tensor] = None, cache: Optional[Cache] = None,
     offset: Union[int, torch.Tensor] = 0, dtype: torch.dtype = torch.float32,
     sequential_xt: bool = False, return_cross_qk: bool = False, remat=False,
+    gather_logits: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """tokens (B, T) [+ audio features (B, Ta, D)] -> (fp32 logits (B, T, V), cache).
 
@@ -592,12 +645,15 @@ def decoder_apply(
     shared FFN (zero attention delta).
 
     The teacher-forced path is differentiable (``remat`` as in
-    :func:`_remat_wrap`); the cache path runs without autograd."""
+    :func:`_remat_wrap`); the cache path runs without autograd. Under a
+    vocabulary split the logits are gathered unless ``gather_logits`` is
+    false, which leaves this rank's (B, T, V / n_model) block."""
     if cache is not None and torch.is_grad_enabled():
         with torch.no_grad():
             return decoder_apply(
                 params, dims, tokens, audio_features, xt=xt, cache=cache, offset=offset,
                 dtype=dtype, sequential_xt=sequential_xt, return_cross_qk=return_cross_qk,
+                gather_logits=gather_logits,
             )
     dec = params.decoder
     n_head = dims.n_text_head
@@ -609,7 +665,8 @@ def decoder_apply(
         pos = pe[offset.long()[:, None] + torch.arange(T, device=dev)[None]]
     else:
         pos = pe[int(offset): int(offset) + T]
-    x = (dec.token_embedding.weight[tokens] + pos).to(dtype)
+    vocab_tp = _tp(dec)
+    x = (vocab_embedding(dec.token_embedding.weight, tokens, vocab_tp) + pos).to(dtype)
 
     use_gated = dec.blocks[0].gated
     if return_cross_qk and cache is not None:
@@ -654,6 +711,7 @@ def decoder_apply(
         def layer(key: str, l: int) -> Optional[torch.Tensor]:
             return cache[key][l] if key in cache else None
 
+        n_self = local_heads(dec.blocks[0].attn, n_head)
         for l, blk in enumerate(dec.blocks):
             if have_xt_kv:
                 x = _gated_x_attn_cached(
@@ -663,26 +721,26 @@ def decoder_apply(
             elif use_gated:
                 x = _gated_ff_only(blk, x)
             ap = blk.attn
-            x_ln = layer_norm(blk.attn_ln, x)
+            x_ln = copy_to_tp(layer_norm(blk.attn_ln, x), _tp(ap))
             q = linear(ap.query, x_ln)
             k_raw = linear(ap.key, x_ln)
             v_raw = linear(ap.value, x_ln)
             k_l, v_l = cache["k"][l], cache["v"][l]
             if use_kernel:
-                attn = decode_attn.fused_step(q, k_raw, v_raw, k_l, v_l, offset, n_head)[0]
+                attn = decode_attn.fused_step(q, k_raw, v_raw, k_l, v_l, offset, n_self)[0]
             elif quantized_self:
-                k_q, k_s = quantize_tokenwise_kv(k_raw * scale, n_head)
-                v_q, v_s = quantize_tokenwise_kv(v_raw, n_head)
+                k_q, k_s = quantize_tokenwise_kv(k_raw * scale, n_self)
+                v_q, v_s = quantize_tokenwise_kv(v_raw, n_self)
                 k_s_l, v_s_l = cache["k_s"][l], cache["v_s"][l]
                 for slab, new in ((k_l, k_q), (v_l, v_q), (k_s_l, k_s), (v_s_l, v_s)):
                     update_cache(slab, new, offset)
-                attn = cached_qkv_attention(q, k_l, v_l, n_head, mask=mask,
+                attn = cached_qkv_attention(q, k_l, v_l, n_self, mask=mask,
                                             k_scale=k_s_l, v_scale=v_s_l)
             else:
                 update_cache(k_l, k_raw * scale, offset)
                 update_cache(v_l, v_raw, offset)
-                attn = cached_qkv_attention(q, k_l, v_l, n_head, mask=mask)
-            x = x + linear(ap.out, attn)
+                attn = cached_qkv_attention(q, k_l, v_l, n_self, mask=mask)
+            x = x + row_linear(ap.out, attn, _tp(ap))
             x = x + attention_block(
                 blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head,
                 k_override=cache["xa_k"][l], v_override=cache["xa_v"][l],
@@ -693,11 +751,13 @@ def decoder_apply(
             else:
                 x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
 
-    x = layer_norm(dec.ln, x)
+    x = copy_to_tp(layer_norm(dec.ln, x), vocab_tp)
     logits = torch.matmul(x.float(), lm_head_weight(params, x.dtype).t())
     lm_head_s = getattr(dec, "lm_head_s", None)
     if lm_head_s is not None:  # int8 lm head: per-vocabulary-row scales
         logits = logits * lm_head_s
+    if gather_logits:
+        logits = gather_from_tp(logits, vocab_tp)
     return logits, cache
 
 
@@ -745,8 +805,14 @@ def init_params(
     return model.eval()
 
 
-def _quantize_linear(p: nn.Linear) -> None:
-    w_q, w_s = quantize_linear_params(p.weight)
+def _quantize_linear(p: nn.Linear, row_tp=None) -> None:
+    """``row_tp``: the mesh of a row-parallel layer, whose per-output-channel
+    amax spans the input features of every rank (``all_reduce`` max)."""
+    amax_reduce = None
+    if row_tp is not None:
+        def amax_reduce(a):
+            return row_tp.all_reduce(a, MODEL_AXIS, "max")
+    w_q, w_s = quantize_linear_params(p.weight, amax_reduce)
     p.weight = None  # the int8 copy replaces it
     p.register_buffer("w_q", w_q, persistent=False)
     p.register_buffer("w_s", w_s, persistent=False)
@@ -767,18 +833,23 @@ def quantize_decode_params(params: Whisper) -> Whisper:
     (``lm_head_q``/``lm_head_s``) for the logits only: the embedding
     gather keeps the table. Read once at prefill and kept as they are:
     cross-attention and gated k/v, ``xt_projection``, the positions and
-    every LayerNorm."""
+    every LayerNorm. Under tensor parallelism a row-parallel weight's
+    scales span the full input dimension, as in JAX (its amax is reduced
+    over the model axis); the other scales are per output channel and
+    local already."""
     dec = params.decoder
     for blk in dec.blocks:
-        for lin in (blk.attn.query, blk.attn.key, blk.attn.value, blk.attn.out,
-                    blk.cross_attn.query, blk.cross_attn.out, blk.mlp[0], blk.mlp[2]):
+        for lin in (blk.attn.query, blk.attn.key, blk.attn.value,
+                    blk.cross_attn.query, blk.cross_attn.out, blk.mlp[0]):
             _quantize_linear(lin)
+        _quantize_linear(blk.attn.out, _tp(blk.attn))
+        _quantize_linear(blk.mlp[2], _tp(blk.mlp))
         if blk.gated:
             for sub in blk.gated_x_attn_layers:
                 _quantize_linear(sub.attn.query)
-                _quantize_linear(sub.attn.out)
+                _quantize_linear(sub.attn.out, _tp(sub.attn))
             _quantize_linear(blk.ff[0])
-            _quantize_linear(blk.ff[2])
+            _quantize_linear(blk.ff[2], _tp(blk.ff))
     lm_q, lm_s = quantize_int8(dec.token_embedding.weight, dim=-1)
     dec.register_buffer("lm_head_q", lm_q, persistent=False)
     dec.register_buffer("lm_head_s", lm_s.squeeze(-1), persistent=False)

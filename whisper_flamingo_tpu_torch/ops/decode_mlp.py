@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tp import reduce_from_tp
 from . import cuda_build
 
 TILE_F = 512  # the JAX package's ffn tile: part of the dispatch rule
@@ -292,7 +293,12 @@ def fused_mlp(p: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
     """Drop-in for ``mlp_block(p, x)`` on the decode path: ``p`` is a
     layer's MLP (``p[0]`` fc1, ``p[2]`` fc2, plain or quantized by
     ``quantize_decode_params``), ``x`` (..., D) with the leading axes folded
-    into rows. The JAX dispatch rule picks the kernel or ``mlp_block``."""
+    into rows. The JAX dispatch rule picks the kernel or ``mlp_block``.
+
+    Under tensor parallelism (``p.tp``, fc1's output and fc2's input split)
+    the kernel runs on this rank's shard with a zero fc2 bias; the partial
+    outputs are summed over the model axis and the bias is added once,
+    after the sum."""
     w1, w2, s1, s2 = _weights(p)
     f, d = w1.shape
     rows = x.numel() // x.shape[-1]
@@ -302,14 +308,28 @@ def fused_mlp(p: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
 
         return mlp_block(p, x)
     x2 = x.reshape(rows, d)
-    b1, b2 = p[0].bias, p[2].bias
+    tp = getattr(p, "tp", None)
+    b1, b2 = p[0].bias, p[2].bias if tp is None else _zero_bias(p)
     if x.device.type == "cpu":
         out = fused_mlp_plain(x2, w1, b1, w2, b2, s1, s2)
     elif x.device.type == "cuda":
         out = _launch(x2.contiguous(), w1, b1, w2, b2, s1, s2)
     else:
         raise RuntimeError(f"fused_mlp: no kernel for device {x.device}")
+    if tp is not None:
+        out = reduce_from_tp(out, tp) + p[2].bias.to(x.dtype)
     return out.reshape(x.shape)
+
+
+def _zero_bias(p: nn.Sequential) -> torch.Tensor:
+    """fc2's zero bias for the split kernel call, made once per layer (the
+    kernel's prepared weight set holds the tensor itself)."""
+    b2 = p[2].bias
+    zero = getattr(p, "tp_zero_bias", None)
+    if zero is None or zero.dtype != b2.dtype or zero.device != b2.device:
+        zero = torch.zeros_like(b2)
+        p.tp_zero_bias = zero
+    return zero
 
 
 fused_mlp.launches = 0

@@ -25,7 +25,7 @@ exact zeros.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,13 +34,21 @@ def _inverse(scale: torch.Tensor) -> torch.Tensor:
     return torch.where(scale > 0, 1.0 / scale.clamp_min(1e-30), torch.zeros_like(scale))
 
 
+AmaxReduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
 def quantize_int8(
-    x: torch.Tensor, dim: Union[int, Sequence[int]]
+    x: torch.Tensor, dim: Union[int, Sequence[int]], amax_reduce: AmaxReduce = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(q, scale)`` with ``q = round(x / scale)`` in [-127, 127] (int8) and
-    the float32 ``scale = amax / 127`` over ``dim``, reduced dims kept."""
+    the float32 ``scale = amax / 127`` over ``dim``, reduced dims kept.
+    ``amax_reduce`` combines the amax with other ranks' before the scale
+    (a weight split along ``dim`` over the model axis)."""
     xf = x.float()
-    scale = xf.abs().amax(dim=dim, keepdim=True) / 127.0
+    amax = xf.abs().amax(dim=dim, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    scale = amax / 127.0
     q = torch.round(xf * _inverse(scale))
     return q.to(torch.int8), scale
 
@@ -58,10 +66,13 @@ def quantize_tokenwise_kv(x: torch.Tensor, n_head: int) -> Tuple[torch.Tensor, t
     return q.to(torch.int8), scale
 
 
-def quantize_linear_params(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_linear_params(
+    weight: torch.Tensor, amax_reduce: AmaxReduce = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """An ``nn.Linear`` weight (D_out, D_in) -> int8 ``w_q`` of the same
-    shape and float32 per-output-channel ``w_s`` (D_out,)."""
-    w_q, w_s = quantize_int8(weight, dim=-1)
+    shape and float32 per-output-channel ``w_s`` (D_out,); ``amax_reduce``
+    as in :func:`quantize_int8` (an input-split weight)."""
+    w_q, w_s = quantize_int8(weight, dim=-1, amax_reduce=amax_reduce)
     return w_q, w_s.squeeze(-1)
 
 

@@ -101,6 +101,7 @@ def build_video_encoder(cfg) -> VideoEncoder:
 
 def main(argv: Optional[List[str]] = None) -> TrainState:
     cfg = common.load_config(argv)
+    mesh = common.setup_mesh(cfg)  # joins the process group before the model is built
     model = common.build_model(cfg, gated=True)
     video = build_video_encoder(cfg)
     vcfg = video.cfg
@@ -141,7 +142,7 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
         # validation runs the trained AV path (video -> gated x-attn): the
         # checkpoint monitor selects on this loss
         eval_step=functools.partial(make_av_eval_step(model.dims, dtype=cfg.compute_dtype), video),
-        mesh=common.setup_mesh(cfg),
+        mesh=mesh,
     )
     state = trainer.maybe_resume(TrainState.create(model, tx))
     state = trainer.fit(state, train_loader, val_loaders={"val": val_loader},

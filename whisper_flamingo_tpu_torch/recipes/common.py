@@ -11,9 +11,20 @@ comes from the config's ``dataset`` key:
 
 The model and the text conditioner (:func:`build_conditioner`, BERT over
 the translation strings, run by the trainer's ``prepare_batch`` hook) are
-built on the config's ``device`` (the card unless it says ``cpu``). Mesh
-parallelism (``num_devices`` x ``tp_size`` > 1) is a later slice and
-raises.
+built on the config's ``device`` (the card unless it says ``cpu``).
+
+Parallelism: ``num_devices`` x ``tp_size`` > 1 asks for a (data, model)
+mesh of that many ranks, one process each, launched by ``torchrun``:
+
+    torchrun --nproc-per-node 8 -m whisper_flamingo_tpu_torch.recipes.whisper_ft \
+        configs/smoke/ft_dp.yaml device=cpu
+
+:func:`setup_mesh` joins the process group (before the model is built, so
+each rank builds on its own card) and builds the mesh; every rank reads
+the same global batches of ``batch_size`` rows and steps on its data
+index's rows (JAX's single-host semantics). The ``process_index`` /
+:class:`..data.samplers.DistributedBatchSampler` path stays JAX's
+multi-host mode, where each host reads its own batches.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ import os
 from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig
 from ..data.collator import WhisperCollator
@@ -38,6 +50,8 @@ from ..data.samplers import DistributedBatchSampler, ShuffledBatchSampler, Sorte
 from ..data.translations import CsvLookup, TranslatedSource, build_lookups
 from ..models.bert import HFBertConditioner, TextConditioner
 from ..models.whisper import Whisper
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh
 from ..training.optim import Mask
 from ..training.steps import cast_frozen_bf16
 
@@ -132,11 +146,29 @@ def build_loader(cfg: TrainConfig, split: str, tokenizer, *, training: bool,
 
 
 def setup_mesh(cfg: TrainConfig):
-    """``None`` for one device; a mesh (``num_devices`` x ``tp_size`` > 1)
-    is not ported yet and raises."""
-    if cfg.num_devices * cfg.tp_size > 1:
-        raise NotImplementedError("mesh parallelism is not ported yet (num_devices, tp_size)")
-    return None
+    """``None`` for one device; for ``num_devices`` x ``tp_size`` > 1 the
+    (``num_devices``, ``tp_size``) mesh over the process group, joined here
+    from ``torchrun``'s environment when this process is not in one yet.
+    Raises ``ValueError`` (naming the ``torchrun`` command) when there is
+    no process group to join or its size differs."""
+    total = cfg.num_devices * cfg.tp_size
+    if total <= 1:
+        return None
+    launch = (f"`torchrun --nproc-per-node {total} -m whisper_flamingo_tpu_torch.recipes.<name> "
+              "<config.yaml> ...`")
+    if not dist.is_initialized():
+        if not os.environ.get("WORLD_SIZE"):
+            raise ValueError(
+                f"num_devices={cfg.num_devices} x tp_size={cfg.tp_size} needs {total} ranks "
+                f"and no process group exists: launch with {launch}"
+            )
+        distributed.initialize(device=cfg.device)
+    if dist.get_world_size() != total:
+        raise ValueError(
+            f"num_devices={cfg.num_devices} x tp_size={cfg.tp_size} needs {total} ranks, the "
+            f"process group has {dist.get_world_size()}: launch with {launch}"
+        )
+    return make_mesh(cfg.num_devices, cfg.tp_size)
 
 
 def build_model(cfg: TrainConfig, *, gated: Optional[bool] = None) -> Whisper:

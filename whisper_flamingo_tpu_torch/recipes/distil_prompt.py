@@ -19,6 +19,7 @@ import copy
 from typing import List, Optional
 
 from ..data.dataset import SpeechDataset
+from ..parallel.mesh import shard_params
 from ..tokenizer import get_tokenizer
 from ..training.checkpoints import load_torch_checkpoint
 from ..training.optim import encoder_frozen_mask, whisper_optimizer
@@ -54,6 +55,7 @@ class PromptTeacherDataset(SpeechDataset):
 
 def main(argv: Optional[List[str]] = None) -> TrainState:
     cfg = common.load_config(argv)
+    mesh = common.setup_mesh(cfg)  # joins the process group before the model is built
     teacher = common.build_model(cfg, gated=False)
     if cfg.teacher_ckpt:
         loaded, _ = load_torch_checkpoint(cfg.teacher_ckpt, teacher.dims, seed=cfg.seed,
@@ -93,8 +95,10 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
     trainer = Trainer(
         cfg=cfg, dims=teacher.dims, train_step=step,
         eval_step=make_eval_step(teacher.dims, dtype=cfg.compute_dtype),
-        mesh=common.setup_mesh(cfg),
+        mesh=mesh,
     )
+    if mesh is not None:
+        shard_params(teacher, mesh)
     state = trainer.maybe_resume(TrainState.create(student, tx))
     state = trainer.fit(state, train_loader, val_loaders={"val": val_loader},
                         max_steps=cfg.extras.get("max_steps"),

@@ -28,6 +28,7 @@ from . import common
 
 def main(argv: Optional[List[str]] = None) -> TrainState:
     cfg = common.load_config(argv)
+    mesh = common.setup_mesh(cfg)  # joins the process group before the model is built
     if not cfg.add_gated_x_attn:
         raise ValueError("trans_asr requires add_gated_x_attn: 1")
 
@@ -67,7 +68,7 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
     trainer = Trainer(
         cfg=cfg, dims=model.dims, train_step=step,
         eval_step=make_eval_step(model.dims, use_xt=True, dtype=cfg.compute_dtype),
-        prepare_batch=prepare, mesh=common.setup_mesh(cfg),
+        prepare_batch=prepare, mesh=mesh,
     )
     state = trainer.maybe_resume(TrainState.create(model, tx))
     state = trainer.fit(state, train_loader, val_loaders={"val": val_loader},

@@ -22,6 +22,7 @@ from typing import List, Optional
 import torch
 
 from ..models.whisper import ModelExtras, Whisper, init_params
+from ..parallel.mesh import shard_params
 from ..tokenizer import get_tokenizer
 from ..training.checkpoints import load_torch_checkpoint
 from ..training.optim import encoder_frozen_mask, flamingo_trainable_mask, whisper_optimizer
@@ -47,6 +48,7 @@ def init_student_from_teacher(teacher: Whisper, student: Whisper) -> Whisper:
 
 def main(argv: Optional[List[str]] = None) -> TrainState:
     cfg = common.load_config(argv)
+    mesh = common.setup_mesh(cfg)  # joins the process group before the model is built
     teacher = common.build_model(cfg, gated=True)
     if cfg.teacher_ckpt:
         loaded, _ = load_torch_checkpoint(cfg.teacher_ckpt, teacher.dims, teacher.extras,
@@ -96,8 +98,10 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
         cfg=cfg, dims=teacher.dims, train_step=step,
         eval_step=make_eval_step(teacher.dims, dtype=cfg.compute_dtype),
         prepare_batch=common.make_xt_prepare(conditioner, cfg.num_langs),
-        mesh=common.setup_mesh(cfg),
+        mesh=mesh,
     )
+    if mesh is not None:
+        shard_params(teacher, mesh)
     state = trainer.maybe_resume(TrainState.create(student, tx))
     state = trainer.fit(state, train_loader, val_loaders={"val": val_loader},
                         max_steps=cfg.extras.get("max_steps"),

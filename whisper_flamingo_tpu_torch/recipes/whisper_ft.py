@@ -29,6 +29,7 @@ from .common import build_loader, build_model, load_config, maybe_cast_frozen, s
 
 def main(argv: Optional[List[str]] = None) -> TrainState:
     cfg = load_config(argv)
+    mesh = setup_mesh(cfg)  # joins the process group before the model is built
     use_prompt = bool(cfg.extras.get("use_prompt", False))
 
     model = build_model(cfg, gated=False)
@@ -58,7 +59,7 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
     trainer = Trainer(
         cfg=cfg, dims=model.dims, train_step=step,
         eval_step=make_eval_step(model.dims, dtype=cfg.compute_dtype),
-        mesh=setup_mesh(cfg),
+        mesh=mesh,
     )
     state = trainer.maybe_resume(TrainState.create(model, tx))
     state = trainer.fit(state, train_loader, val_loaders={"val": val_loader},

@@ -21,11 +21,20 @@ updates). Parameters are updated in place.
 
 Masks are ``{parameter name: bool}`` over the model's OpenAI-keyed
 parameters. ``optimizer="adafactor"`` is not ported yet and raises.
+
+Under a mesh (:meth:`WhisperOptimizer.shard`, after
+:func:`..parallel.mesh.shard_params`) the moments are sliced like their
+parameters, each step first averages the gradients over the data axis in
+one flat ``all_reduce``, and clipping reads the global norm: the squares
+of split parameters summed over the model axis, each replicated parameter
+counted once (its gradient is the same on every rank of a model row).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
+
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 import numpy as np
 import torch
@@ -109,6 +118,23 @@ class WhisperOptimizer:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.acc = [torch.zeros_like(p) for p in self.params] if accumulate_steps > 1 else []
+        self.mesh = None
+        self.tp_dims: List[Optional[int]] = [None] * len(self.params)
+
+    def shard(self, mesh, dims: Dict[str, Optional[int]]) -> "WhisperOptimizer":
+        """Run under ``mesh``: ``dims`` is the model's layout (``tp_dims``);
+        moments still at a parameter's full shape (made, or restored,
+        before :func:`..parallel.mesh.shard_params`) take this rank's
+        block."""
+        self.mesh = mesh
+        self.tp_dims = [dims.get(n) if mesh.n_model > 1 else None for n in self.names]
+        for state in (self.mu, self.nu, self.acc):
+            for i, t in enumerate(state):
+                dim, p = self.tp_dims[i], self.params[i]
+                if dim is not None and t.shape != p.shape:
+                    block = p.shape[dim]
+                    state[i] = t.narrow(dim, mesh.model_index * block, block).clone()
+        return self
 
     @property
     def lr(self) -> float:
@@ -122,16 +148,31 @@ class WhisperOptimizer:
                 raise RuntimeError(f"no gradient for trainable parameter {name!r}")
             grads.append(p.grad)
             p.grad = None
+        mesh = self.mesh
+        if mesh is not None and mesh.n_data > 1 and grads:  # the data-parallel average
+            flat = torch.cat([g.reshape(-1) for g in grads])  # fp32: trainable masters
+            mesh.all_reduce(flat, DATA_AXIS).div_(mesh.n_data)
+            grads = [part.view_as(g) for g, part in zip(grads, flat.split([g.numel() for g in grads]))]
         return grads
 
     def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        split = [i for i, d in enumerate(self.tp_dims) if d is not None]
+        if not split:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        else:  # the global norm: split squares summed over the model axis
+            sq = [torch.sum(g * g) for g in grads]
+            part = self.mesh.all_reduce(sum(sq[i] for i in split).clone(), MODEL_AXIS)
+            g_norm = torch.sqrt(part + sum(sq[i] for i in range(len(sq)) if i not in split))
         keep = g_norm < self.max_grad_norm
         return [torch.where(keep, g, (g / g_norm) * self.max_grad_norm) for g in grads]
 
     @torch.no_grad()
     def step(self) -> bool:
         grads = self._grads()
+        if not grads:  # nothing trains: empty updates, the counts advance
+            self.mini_step = (self.mini_step + 1) % self.accumulate_steps
+            self.count += self.mini_step == 0
+            return self.mini_step == 0
         if self.accumulate_steps > 1:
             # optax.MultiSteps: acc += (g - acc) / (n + 1), applied on the k-th
             diff = torch._foreach_sub(grads, self.acc)
@@ -172,6 +213,16 @@ class WhisperOptimizer:
             "names": list(self.names), "count": self.count, "mini_step": self.mini_step,
             "mu": self.mu, "nu": self.nu, "acc": self.acc,
         }
+
+    def full_state_dict(self) -> Dict[str, object]:
+        """:meth:`state_dict` with split moments gathered to full shapes
+        (every rank of the model axis must call it)."""
+        out = self.state_dict()
+        if self.mesh is not None:
+            for key in ("mu", "nu", "acc"):
+                out[key] = [t if d is None else self.mesh.all_gather(t, MODEL_AXIS, d)
+                            for t, d in zip(out[key], self.tp_dims)]
+        return out
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
         """Restore a :meth:`state_dict`; raises where the parameter set or

@@ -24,6 +24,16 @@ backpropagates (through the flash64 backward kernel when the encoder
 trains), and updates the parameters in place through the state's
 optimizer (the analogue of JAX's donated state). Metrics are device
 tensors; reading one waits for the step.
+
+Under a mesh (a model sliced by :func:`..parallel.mesh.shard_params`, a
+batch of this rank's rows from :func:`..parallel.mesh.shard_batch`) every
+step computes what one device computes on the global batch, as JAX's
+``pjit`` did: each masked mean is the global one (this rank's masked sum
+times ``n_data`` over the label count summed over the data axis, so the
+ranks' losses, and the gradients the optimizer averages over the data
+axis, average to the global mean), the reported loss is that mean, the CE
+runs vocabulary-parallel on split logits (:func:`..parallel.tp.vocab_parallel_nll`)
+and the distillation losses read the gathered full-vocabulary logits.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ import torch.nn.functional as F
 from ..models.avhubert import avhubert_encoder_apply
 from ..models.dims import ModelDimensions
 from ..models.whisper import Whisper, decoder_apply, encoder_apply
+from ..parallel.mesh import DATA_AXIS
+from ..parallel.tp import vocab_parallel_nll
 from .optim import Mask, WhisperOptimizer
 
 LABEL_PAD = -100
@@ -75,27 +87,57 @@ def cast_frozen_bf16(model: Whisper, trainable_mask: Mask) -> Whisper:
     return model
 
 
-def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over non-ignored positions (``ignore_index=-100``)."""
+def _mesh(model):
+    return getattr(model, "mesh", None)
+
+
+def _count(mask: torch.Tensor, mesh) -> torch.Tensor:
+    """The masked mean's divisor: the label count, clamped at 1; under data
+    ranks the global count over ``n_data`` (this rank's share)."""
+    if mesh is None or mesh.n_data == 1:
+        return torch.clamp(mask.sum(), min=1)
+    total = mesh.all_reduce(mask.sum().to(torch.float32), DATA_AXIS)
+    return torch.clamp(total, min=1) / mesh.n_data
+
+
+def global_mean(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """A loss of :func:`ce_loss` / :func:`kd_kl_loss` as the global masked
+    mean: the ranks' values averaged over the data axis (detached)."""
+    loss = loss.detach()
+    if mesh is None or mesh.n_data == 1:
+        return loss
+    return mesh.all_reduce(loss.clone(), DATA_AXIS) / mesh.n_data
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor, mesh=None, vocab_tp=None) -> torch.Tensor:
+    """Mean CE over non-ignored positions (``ignore_index=-100``). Under a
+    mesh, this rank's share of the global mean (:func:`global_mean` reads
+    it); with ``vocab_tp`` (the mesh of a vocabulary-split decoder) the
+    logits are this rank's vocabulary block."""
     mask = labels != LABEL_PAD
     safe = torch.where(mask, labels, torch.zeros_like(labels))
-    logprobs = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logprobs, -1, safe.unsqueeze(-1)).squeeze(-1)
-    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1)
+    if vocab_tp is not None:
+        nll = vocab_parallel_nll(logits.float(), safe, vocab_tp)
+    else:
+        logprobs = F.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logprobs, -1, safe.unsqueeze(-1)).squeeze(-1)
+    return torch.sum(nll * mask) / _count(mask, mesh)
 
 
 def kd_kl_loss(
     student_logits: torch.Tensor, teacher_logits: torch.Tensor, labels: torch.Tensor,
-    temperature: float,
+    temperature: float, mesh=None,
 ) -> torch.Tensor:
-    """T^2-scaled KL(teacher || student), masked-mean over label positions."""
+    """T^2-scaled KL(teacher || student), masked-mean over label positions
+    (full-vocabulary logits; under a mesh this rank's share, as
+    :func:`ce_loss`)."""
     t = temperature
     s = F.log_softmax(student_logits.float() / t, dim=-1)
     p = F.softmax(teacher_logits.float() / t, dim=-1)
     logp = F.log_softmax(teacher_logits.float() / t, dim=-1)
     kl = torch.sum(p * (logp - s), dim=-1)
     mask = labels != LABEL_PAD
-    return (t * t) * torch.sum(kl * mask) / torch.clamp(mask.sum(), min=1)
+    return (t * t) * torch.sum(kl * mask) / _count(mask, mesh)
 
 
 def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -113,7 +155,8 @@ def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Te
 
 
 def _apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
-    loss.backward()
+    if loss.requires_grad:  # else nothing trains (JAX's all-zero updates)
+        loss.backward()
     state.optimizer.step()
     state.step += 1
     return state
@@ -128,16 +171,17 @@ def make_ce_train_step(
 
     def step(state: TrainState, batch: Dict[str, Any]):
         model = state.model
+        mesh = _mesh(model)
         b = to_device(batch, model.device)
         feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
         if freeze_encoder:
             feats = feats.detach()
         logits, _ = decoder_apply(
             model, dims, b["dec_input_ids"], feats, xt=b.get("xt") if use_xt else None,
-            dtype=dtype, remat=remat,
+            dtype=dtype, remat=remat, gather_logits=False,
         )
-        loss = ce_loss(logits, b["labels"])
-        return _apply_update(state, loss), {"loss": loss.detach()}
+        loss = ce_loss(logits, b["labels"], mesh, getattr(model.decoder, "tp", None))
+        return _apply_update(state, loss), {"loss": global_mean(loss, mesh)}
 
     return step
 
@@ -164,6 +208,7 @@ def make_kd_train_step(
 
     def step(state: TrainState, teacher: Whisper, batch: Dict[str, Any]):
         model = state.model
+        mesh = _mesh(model)
         b = to_device(batch, model.device)
         with torch.no_grad():
             teacher_feats = encoder_apply(teacher, teacher_dims, b["input_ids"], dtype=dtype)
@@ -178,11 +223,12 @@ def make_kd_train_step(
             if freeze_student_encoder:
                 feats = feats.detach()
         logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, dtype=dtype, remat=remat)
-        ce = ce_loss(logits, b["labels"])
-        kd = kd_kl_loss(logits, teacher_logits, b["labels"], temperature)
+        ce = ce_loss(logits, b["labels"], mesh)
+        kd = kd_kl_loss(logits, teacher_logits, b["labels"], temperature, mesh)
         loss = alpha * ce + beta * kd
         state = _apply_update(state, loss)
-        return state, {"loss": loss.detach(), "ce": ce.detach(), "kd": kd.detach()}
+        return state, {"loss": global_mean(loss, mesh), "ce": global_mean(ce, mesh),
+                       "kd": global_mean(kd, mesh)}
 
     return step
 
@@ -207,6 +253,7 @@ def make_prompt_kd_train_step(
 
     def step(state: TrainState, teacher: Whisper, batch: Dict[str, Any]):
         model = state.model
+        mesh = _mesh(model)
         b = to_device(batch, model.device)
         with torch.no_grad():
             feats_t = encoder_apply(teacher, dims, b["input_ids"], dtype=dtype)
@@ -228,11 +275,12 @@ def make_prompt_kd_train_step(
         if freeze_student_encoder:
             feats = feats.detach()
         logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, dtype=dtype, remat=remat)
-        ce = ce_loss(logits, b["labels"])
-        kd = kd_kl_loss(logits, aligned, b["labels"], temperature)
+        ce = ce_loss(logits, b["labels"], mesh)
+        kd = kd_kl_loss(logits, aligned, b["labels"], temperature, mesh)
         loss = alpha * ce + beta * kd
         state = _apply_update(state, loss)
-        return state, {"loss": loss.detach(), "ce": ce.detach(), "kd": kd.detach()}
+        return state, {"loss": global_mean(loss, mesh), "ce": global_mean(ce, mesh),
+                       "kd": global_mean(kd, mesh)}
 
     return step
 
@@ -291,9 +339,10 @@ def make_av_train_step(
         if drop_audio:
             feats = torch.zeros_like(feats)
         logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, xt=vfeats[None],
-                                  dtype=dtype, remat=remat)
-        loss = ce_loss(logits, b["labels"])
-        return _apply_update(state, loss), {"loss": loss.detach()}
+                                  dtype=dtype, remat=remat, gather_logits=False)
+        mesh = _mesh(model)
+        loss = ce_loss(logits, b["labels"], mesh, getattr(model.decoder, "tp", None))
+        return _apply_update(state, loss), {"loss": global_mean(loss, mesh)}
 
     return step
 
@@ -311,7 +360,8 @@ def make_av_eval_step(dims: ModelDimensions, *, dtype: torch.dtype = torch.float
         feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype)
         logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, xt=vfeats[None],
                                   dtype=dtype)
-        return ce_loss(logits, b["labels"]), torch.argmax(logits, dim=-1)
+        mesh = _mesh(model)
+        return global_mean(ce_loss(logits, b["labels"], mesh), mesh), torch.argmax(logits, dim=-1)
 
     return step
 
@@ -320,7 +370,8 @@ def make_eval_step(
     dims: ModelDimensions, *, use_xt: bool = False, dtype: torch.dtype = torch.float32,
 ) -> Callable:
     """Teacher-forced eval: ``step(model, batch) -> (loss, argmax tokens)``,
-    without autograd."""
+    without autograd; under a mesh the loss is the global mean and the
+    tokens are this rank's rows."""
 
     @torch.no_grad()
     def step(model: Whisper, batch: Dict[str, Any]):
@@ -330,6 +381,7 @@ def make_eval_step(
             model, dims, b["dec_input_ids"], feats, xt=b.get("xt") if use_xt else None,
             dtype=dtype,
         )
-        return ce_loss(logits, b["labels"]), torch.argmax(logits, dim=-1)
+        mesh = _mesh(model)
+        return global_mean(ce_loss(logits, b["labels"], mesh), mesh), torch.argmax(logits, dim=-1)
 
     return step

@@ -12,11 +12,21 @@ PyTorch-Lightning layer as a plain loop around the train step):
   torch RNG states; a resumed run continues bit-identically;
 - metrics to JSONL.
 
-Left out: wandb (the JSONL is the record), and the mesh: ``mesh`` is
-accepted only as ``None`` (parallelism is a later slice). One change from
-the JAX loop: a resumed :meth:`Trainer.fit` continues the data stream at
-the batch after the checkpoint's step (the JAX loop restarted the epoch),
-so a resumed run sees the batches an uninterrupted run would.
+Under a mesh (``Trainer(mesh=...)``, one process per rank): every rank
+reads the same global batch, runs the host hook on it and steps on its
+rows (:func:`..parallel.mesh.shard_batch`, a ragged batch padded as the
+JAX trainer's ``_device_batch``); :meth:`Trainer.fit` slices the model
+and the optimizer (:meth:`Trainer.shard_state`); validation gathers the
+ranks' predictions and drops the padded rows; checkpoints hold the
+gathered full parameters and optimizer state, so they load on one device
+or under another mesh, and only the primary rank writes them and the
+metrics. Resume loads the full state before :meth:`Trainer.fit` shards
+it, as in JAX.
+
+Left out: wandb (the JSONL is the record). One change from the JAX loop:
+a resumed :meth:`Trainer.fit` continues the data stream at the batch
+after the checkpoint's step (the JAX loop restarted the epoch), so a
+resumed run sees the batches an uninterrupted run would.
 """
 
 from __future__ import annotations
@@ -34,19 +44,26 @@ from ..config import TrainConfig
 from ..metrics import token_accuracy, wer_cer
 from ..models.dims import ModelDimensions
 from ..normalizers import BasicTextNormalizer
+from ..parallel.distributed import is_primary
+from ..parallel.mesh import DATA_AXIS, gather_params, shard_batch, shard_params
 from ..tokenizer import get_tokenizer
 from .steps import TrainState
 
 
 class MetricsLogger:
-    """JSONL metric sink: one object per line with the step and the time."""
+    """JSONL metric sink: one object per line with the step and the time.
+    With ``write`` false (a rank other than the primary) it writes nothing."""
 
-    def __init__(self, log_dir: str, run_id: str):
-        os.makedirs(log_dir, exist_ok=True)
+    def __init__(self, log_dir: str, run_id: str, write: bool = True):
         self.path = os.path.join(log_dir, f"{run_id}.metrics.jsonl")
-        self._fh = open(self.path, "a")
+        self._fh = None
+        if write:
+            os.makedirs(log_dir, exist_ok=True)
+            self._fh = open(self.path, "a")
 
     def log(self, step: int, metrics: Dict[str, Any]) -> None:
+        if self._fh is None:
+            return
         rec = {"step": int(step), "time": time.time(), **{
             k: (float(v) if isinstance(v, (int, float, np.floating, torch.Tensor)) else v)
             for k, v in metrics.items()
@@ -55,7 +72,8 @@ class MetricsLogger:
         self._fh.flush()
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
 
 
 class CheckpointManager:
@@ -63,7 +81,11 @@ class CheckpointManager:
 
     ``step-XXXXXXXX.pt`` holds one save; ``last.pt`` is the newest (a hard
     link to it, so each save writes its bytes once); ``last.meta.json``
-    keeps the top-k scores so pruning survives restarts."""
+    keeps the top-k scores so pruning survives restarts.
+
+    Under a mesh (a sharded model), :meth:`save` is a collective (every
+    rank gathers the full parameters and optimizer state) and only the
+    primary rank writes."""
 
     def __init__(self, directory: str, monitor: str = "val/loss", mode: str = "min",
                  save_top_k: int = 3):
@@ -86,9 +108,10 @@ class CheckpointManager:
         rng = {"cpu": torch.get_rng_state()}
         if torch.cuda.is_available():
             rng["cuda"] = torch.cuda.get_rng_state_all()
+        sharded = getattr(state.model, "mesh", None) is not None
         return {
-            "params": state.model.state_dict(),
-            "opt_state": state.optimizer.state_dict(),
+            "params": gather_params(state.model) if sharded else state.model.state_dict(),
+            "opt_state": state.optimizer.full_state_dict(),
             "step": int(state.step),
             "rng": rng,
         }
@@ -106,7 +129,10 @@ class CheckpointManager:
         path = os.path.join(self.directory, f"step-{step:08d}.pt")
         last = os.path.join(self.directory, "last.pt")
         tmp = f"{path}.tmp"
-        torch.save(self._state_dict(state), tmp)
+        full = self._state_dict(state)
+        if not is_primary():
+            return
+        torch.save(full, tmp)
         os.replace(tmp, path)
         os.link(path, f"{last}.tmp")
         os.replace(f"{last}.tmp", last)
@@ -125,7 +151,10 @@ class CheckpointManager:
         """Load ``last`` into ``template`` (a fresh state with the same
         model and optimizer configuration) and return it; ``None`` when
         there is no checkpoint. A checkpoint whose optimizer state does not
-        fit the template raises."""
+        fit the template raises. The template is whole (not yet sharded):
+        checkpoints hold full tensors."""
+        if getattr(template.model, "mesh", None) is not None:
+            raise ValueError("restore_last: resume into the full state, then shard it")
         last = os.path.join(self.directory, "last.pt")
         if not os.path.exists(last):
             return None
@@ -148,16 +177,15 @@ class Trainer:
     train_step: Callable  # (state, batch) -> (state, metrics)
     eval_step: Callable  # (model, batch) -> (loss, pred_tokens)
     prepare_batch: Optional[Callable] = None  # host hook (e.g. conditioning xt)
-    mesh: Any = None  # parallelism is not ported: only None
+    mesh: Any = None  # parallel.mesh.Mesh: batches split over data, params over model
     logger: Optional[MetricsLogger] = None
     checkpoints: Optional[CheckpointManager] = None
     normalizer: Any = field(default_factory=lambda: BasicTextNormalizer(remove_diacritics=True))
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...): parallelism is not ported yet")
         if self.logger is None:
-            self.logger = MetricsLogger(self.cfg.log_output_dir, self.cfg.train_id)
+            self.logger = MetricsLogger(self.cfg.log_output_dir, self.cfg.train_id,
+                                        write=is_primary())
         if self.checkpoints is None:
             self.checkpoints = CheckpointManager(
                 os.path.join(self.cfg.check_output_dir, self.cfg.train_id),
@@ -189,10 +217,13 @@ class Trainer:
                     break
                 if self.prepare_batch is not None:
                     batch = self.prepare_batch(batch)
-                loss, preds = self.eval_step(model, batch)
+                loss, preds = self.eval_step(model, self._rows(batch))
                 losses.append(float(loss))
                 labels = np.asarray(batch["labels"])
-                preds = preds.cpu().numpy()[: labels.shape[0]]
+                preds = preds.cpu().numpy()
+                if self.mesh is not None:
+                    preds = np.concatenate(self.mesh.all_gather_object(preds, DATA_AXIS))
+                preds = preds[: labels.shape[0]]  # drop the rows padded for the mesh
                 accs.append(token_accuracy(preds, labels, eot=self.tokenizer.eot))
                 for row_pred, row_label in zip(preds, labels):
                     mask = row_label != -100
@@ -212,6 +243,19 @@ class Trainer:
             out[f"{split}/cer"] = cer
         return out
 
+    def _rows(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a global batch (the batch itself with no mesh)."""
+        return batch if self.mesh is None else shard_batch(batch, self.mesh)
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """Slice the model and its optimizer state onto the mesh, in place
+        (the state itself with no mesh, or when sharded already)."""
+        if self.mesh is None or getattr(state.model, "mesh", None) is self.mesh:
+            return state
+        shard_params(state.model, self.mesh)
+        state.optimizer.shard(self.mesh, state.model.tp_dims)
+        return state
+
     # -- training loop -----------------------------------------------------
 
     def fit(
@@ -226,6 +270,7 @@ class Trainer:
         cfg = self.cfg
         max_steps = max_steps or cfg.num_train_steps
         val_every = cfg.validate_every_n_batches
+        state = self.shard_state(state)
 
         if val_loaders:  # validate-before-train pass
             metrics = self.validate(state.model, val_loaders, val_max_batches)
@@ -239,7 +284,7 @@ class Trainer:
             if self.prepare_batch is not None:
                 batch = self.prepare_batch(batch)
             window_tokens += int(np.prod(np.shape(batch["dec_input_ids"])))
-            state, metrics = self.train_step(state, batch)
+            state, metrics = self.train_step(state, self._rows(batch))
             step = state.step
             if step % log_every == 0:
                 dt = time.time() - t0
