@@ -224,6 +224,46 @@ each printing one JSON line:
     forward, lse forward and backward at (4·6, 1500, 64), bf16 and fp32.
     Any failed rank or mismatch fails the phase.
 
+20. the last modules (``phase_outer``). (a) The native host helpers
+    (``whisper_flamingo_tpu_torch/native``, built with ``cc``): built, one
+    ``add_noise`` mix equal to the helper's own, one edit distance equal
+    to the Python path's. Then the kernels at this phase's own shapes
+    against their plain versions, with phases 1 and 3's tolerances:
+    flash64's forward and lse forward at (2·20, 1500, 64), and the
+    decode-attention step at ``small``'s D 768 with 12 heads on demo's 2
+    rows with per-row offsets and 30 with a shared one, bf16 and fp32,
+    the caches equal. (b) The flagship TransKD rung
+    (``tools.transkd_flagship_probe``: the gated ``large-v2`` teacher,
+    bf16 and frozen; the ``large-v2`` student with a frozen bf16 encoder
+    and shared features; b2 x 128 tokens, remat full) with Adafactor and
+    with AdamW, each in a subprocess, 1 warm-up step and 3 timed: ms a
+    step, the optimizer's span a step (CUDA events around ``tx.step()``),
+    resident and peak GB, the optimizer's state bytes, 32 flash64
+    forward launches a step at (2·20, 1500, 64), finite losses, the teacher
+    and the student's encoder bit-equal after the steps. (c) The remat
+    policies ``none``, ``full``, ``dots`` on phase 8's protocol (``small``
+    b8, AdamW, bf16): median ms a step, peak GB (beside the memory held
+    before the model was built), flash64 launches (lse forward and
+    backward) a step; then one fp32 step each through the
+    kernels, with deterministic algorithms: equal losses and gradients
+    (``torch.equal``). (d) One fp32 Adafactor step of ``small`` through the
+    kernels and through the plain flash64, on seeds 0 and 1: loss within
+    1e-5 relative, every gradient within 1e-4 of its largest magnitude
+    (phase 9's gates), every update within 1e-3 of its largest (Adafactor's
+    row and column normalisation magnifies a gradient error in a row of
+    small gradients: the worst element's row and column statistics and
+    their change between the runs are reported with the first-order error
+    they give), and the plain run's gradients through the kernel run's
+    optimizer give the plain run's update within 1e-6.
+    (e) SpecAugment ``ls-double`` on a b8 x 3000 x 80 batch on the card
+    equal to the CPU's from the same draws, bit for bit; the card's ms a
+    batch (draws and mask) beside ``spec_augment_np``'s host ms for the
+    same 8 rows. (f) ``examples.eval_table.main`` at ``small``, beam 15, 8
+    synthetic utterances, 64 tokens, clean and 0 dB, En and Ru: the table,
+    wall s, 12 flash64 launches a batch and 12 decode-attention launches an
+    incremental step; ``examples.demo.main`` at ``small``, greedy and beam
+    15, likewise, its decode steps at the shapes held above.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN
 throughout. Any failed phase raises, and the script exits non-zero.
@@ -687,10 +727,10 @@ def phase_flash64_bwd(torch, flash64, gen):
     return timed["bfloat16"]
 
 
-def _train_batch(np, b):
+def _train_batch(np, b, seed=0):
     """The bench protocol's batch: numpy seed 0, (b, 80, 3000) mel, (b, 128)
     tokens and labels in [0, 1000)."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     return {
         "input_ids": rng.standard_normal((b, 80, 3000)).astype(np.float32),
         "dec_input_ids": rng.integers(0, 1000, (b, 128)).astype(np.int32),
@@ -2470,6 +2510,445 @@ def phase_parallel(torch, device="cuda", sizes=PAR_SIZES):
     return row
 
 
+# -- 20. the last modules: native helpers, Adafactor, remat policies,
+# SpecAugment on the device, the examples ---------------------------------------
+
+# the flagship TransKD rung (the probe's third) and the small-model sizes;
+# ``phase_outer(torch, device="cpu", sizes=OUTER_DEBUG)`` rehearses on the CPU
+OUTER_SIZES = dict(teacher="large-v2", student="large-v2", kd_batch=2, kd_steps=3,
+                   model="small", batch=BATCH, fp32_batch=2, timed_steps=5,
+                   adafactor_seeds=(0, 1), spec_frames=3000, examples_model="small",
+                   synthetic=8, demo_rows=2)
+OUTER_DEBUG = dict(teacher="debug", student="debug", kd_batch=1, kd_steps=1,
+                   model="debug", batch=2, fp32_batch=1, timed_steps=1,
+                   adafactor_seeds=(0,), spec_frames=300, examples_model="debug",
+                   synthetic=2, demo_rows=2)
+
+
+def _count_decoder_calls(decoding):
+    """Count ``decoding.decoder_apply`` calls (a prefill or an incremental
+    step each); returns (counter dict, restore)."""
+    calls = {"n": 0}
+    original = decoding.decoder_apply
+
+    def counted(*args, **kwargs):
+        calls["n"] += 1
+        return original(*args, **kwargs)
+
+    decoding.decoder_apply = counted
+
+    def restore():
+        decoding.decoder_apply = original
+
+    return calls, restore
+
+
+def _outer_kernels_vs_plain(torch, device, sizes):
+    """Each kernel phase 20's paths run, against its plain version on the
+    same inputs at those paths' shapes, with the tolerances of phases 1 and
+    3: flash64's forward (and its lse forward) at the flagship teacher's
+    (batch * H, 1500, 64); the decode-attention step on the examples'
+    model at demo's rows, greedy's two with per-row offsets and beam's
+    with one shared offset, the caches equal. Returns (rows, failures)."""
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.ops import decode_attn, flash64
+
+    gen = torch.Generator(device=device).manual_seed(20)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    out, failures = [], []
+
+    def check(row, ok):
+        out.append(row)
+        if not ok:
+            failures.append(f"{row['kernel']} vs plain on phase 20's path: {row}")
+
+    tdims = wt.MODEL_DIMS[sizes["teacher"]]
+    b, h, t = sizes["kd_batch"], tdims.n_audio_head, tdims.n_audio_ctx
+    for dtype_name, tol, lse_tol in (("bfloat16", 1e-2, 2e-2), ("float32", 1e-5, 1e-5)):
+        dtype = getattr(torch, dtype_name)
+        q, k = ((randn(b, h, t, 64) * 64 ** -0.25).to(dtype) for _ in range(2))
+        v = randn(b, h, t, 64).to(dtype)
+        o = flash64.flash64_forward(q, k, v)
+        o_lse, lse = flash64.flash64_forward(q, k, v, with_lse=True)
+        o_ref, lse_ref = flash64.flash64_forward_plain(q, k, v, with_lse=True)
+        row = {"kernel": "flash64", "dtype": dtype_name, "shape": [b * h, t, 64],
+               "o_max_abs_err": max_err(o, o_ref), "o_tol": tol,
+               "lse_o_max_abs_err": max_err(o_lse, o_ref), "lse_o_tol": lse_tol,
+               "lse_max_abs_err": max_err(lse, lse_ref), "lse_tol": 1e-4}
+        check(row, torch.isfinite(o).all().item() and row["o_max_abs_err"] <= tol
+              and row["lse_o_max_abs_err"] <= lse_tol and row["lse_max_abs_err"] <= 1e-4)
+
+    dims = wt.MODEL_DIMS[sizes["examples_model"]]
+    heads, d, t_max = dims.n_text_head, dims.n_text_state, dims.n_text_ctx
+    rows = sizes["demo_rows"]
+    for dtype_name, tol in (("bfloat16", 2e-2), ("float32", 1e-5)):
+        dtype = getattr(torch, dtype_name)
+        for n, mode in ((rows, "per_row"), (rows * BEAM, "scalar")):
+            q, kn, vn = (randn(n, 1, d).to(dtype) for _ in range(3))
+            kc, vc = ((randn(n, t_max, d) * 0.5).to(dtype) for _ in range(2))
+            if mode == "scalar":
+                offset = SAMPLE_LEN + 2
+            else:
+                offset = torch.randint(0, t_max, (n,), generator=gen, device=device,
+                                       dtype=torch.int32)
+            kc2, vc2 = kc.clone(), vc.clone()
+            got, _, _ = decode_attn.fused_step(q, kn, vn, kc, vc, offset, heads)
+            ref = decode_attn.fused_step_plain(q, kn, vn, kc2, vc2, offset, heads)
+            err, cache_err = max_err(got, ref), max(max_err(kc, kc2), max_err(vc, vc2))
+            check({"kernel": "decode_attn", "dtype": dtype_name, "cache": [n, t_max, d],
+                   "heads": heads, "offset": mode, "max_abs_err": err,
+                   "cache_max_abs_err": cache_err, "tol": tol},
+                  torch.isfinite(got).all().item() and err <= tol and cache_err == 0.0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, failures
+
+
+def phase_outer(torch, device="cuda", sizes=OUTER_SIZES):
+    """20: the native helpers, the flagship TransKD rung with Adafactor and
+    AdamW, the remat policies, Adafactor at fp32 through the kernels and
+    the plain versions, SpecAugment on the device, and the examples (see
+    the module docstring). On the CPU no kernel launches."""
+    import gc
+
+    import numpy as np
+
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch import decoding, metrics, native
+    from whisper_flamingo_tpu_torch.data import noise
+    from whisper_flamingo_tpu_torch.examples import demo, eval_table
+    from whisper_flamingo_tpu_torch.models.whisper import decoder_apply, encoder_apply
+    from whisper_flamingo_tpu_torch.ops import decode_attn, flash64
+    from whisper_flamingo_tpu_torch.ops import spec_augment as sa
+    from whisper_flamingo_tpu_torch.tools import transkd_flagship_probe as probe
+    from whisper_flamingo_tpu_torch.training.optim import whisper_optimizer
+    from whisper_flamingo_tpu_torch.training.steps import (
+        TrainState, ce_loss, make_ce_train_step, to_device)
+
+    cuda = torch.device(device).type == "cuda"
+    per_launch = 1 if cuda else 0  # the CPU runs the plain versions: no launches
+    out = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # (a) the native helpers: built, one mix, one edit distance
+    if not native.AVAILABLE:
+        raise AssertionError(f"native: the C helpers did not build ({native.lib_path()})")
+    rng = np.random.default_rng(0)
+    clean = rng.standard_normal(48000).astype(np.float32) * 3000
+    babble = rng.standard_normal(20000).astype(np.float32) * 3000
+    mixed = noise.add_noise(clean, [babble], 5.0, np.random.default_rng(1))
+    helper = native.mix_noise(clean, babble, 5.0).astype(np.int16)
+    hyp, ref = "the cat sat on the mat".split(), "a cat sat on the red mat today".split()
+    ed_native = metrics.edit_distance(hyp, ref)
+    native.AVAILABLE = False
+    try:
+        ed_python = metrics.edit_distance(hyp, ref)
+    finally:
+        native.AVAILABLE = True
+    out["native"] = {"available": True, "library": os.path.relpath(native.lib_path(), ROOT),
+                     "mix_equals_helper": bool(np.array_equal(mixed, helper)),
+                     "edit_distance": [ed_native, ed_python]}
+    emit({"phase": "outer_native", **out["native"]})
+    if not out["native"]["mix_equals_helper"] or ed_native != ed_python:
+        raise AssertionError(f"native: {out['native']}")
+
+    # the kernels at the shapes of this phase's paths, against their plain versions
+    rows, failures = _outer_kernels_vs_plain(torch, device, sizes)
+    out["kernels_vs_plain"] = rows
+    emit({"phase": "outer_kernels_vs_plain", "cases": rows})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # (b) the flagship TransKD rung, Adafactor then AdamW, each in a subprocess
+    t_name, s_name, kd_b = sizes["teacher"], sizes["student"], sizes["kd_batch"]
+    tdims = wt.MODEL_DIMS[t_name]
+    extra = [f"--steps={sizes['kd_steps']}", "--warmup=1"] + ([] if cuda else ["--device=cpu"])
+    out["flagship"] = {}
+    for opt in ("adafactor", "adamw"):
+        res = probe.run_subprocess(t_name, s_name, kd_b, opt, extra, timeout=600)
+        if "error" in res:
+            raise AssertionError(f"flagship {opt}: {res['error']}")
+        want = per_launch * tdims.n_audio_layer  # the teacher's encoder; the student shares it
+        row = {k: res[k] for k in ("step_ms", "resident_gb", "peak_gb", "optimizer_state_bytes",
+                                   "optimizer_ms", "optimizer_ms_all", "trainable_params",
+                                   "flash64_fwd_launches_per_step", "flash64_shape",
+                                   "share_feats", "losses", "teacher_unchanged",
+                                   "student_encoder_unchanged", "device")}
+        out["flagship"][opt] = row
+        emit({"phase": f"outer_flagship_{t_name}_{s_name}_b{kd_b}_{opt}", **row})
+        if not (res["losses_finite"] and res["teacher_unchanged"]
+                and res["student_encoder_unchanged"]
+                and res["flash64_fwd_launches_per_step"] == want):
+            raise AssertionError(f"flagship {opt}: {res} (flash64 launches expected {want})")
+
+    # (c) the remat policies on the train bench protocol
+    batch = _train_batch(np, sizes["batch"])
+    out["remat"] = {}
+    for remat in ("none", "full", "dots"):
+        gc.collect()  # earlier phases' unreachable tensors would count in the peak
+        base = 0
+        if cuda:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+        model = wt.load_model(sizes["model"], device=device, seed=0)
+        n_layer = model.dims.n_audio_layer
+        tx, _ = whisper_optimizer(model, 1e-5, total_steps=1000)
+        step = make_ce_train_step(model.dims, dtype=torch.bfloat16, remat=remat)
+        state = TrainState.create(model, tx)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            state, m = step(state, batch)
+        flash64.flash64_forward.lse_launches = flash64.flash64_backward.launches = 0
+        state, m = step(state, batch)
+        sync()
+        launches = {"fwd_lse": flash64.flash64_forward.lse_launches,
+                    "bwd": flash64.flash64_backward.launches}
+        times, losses = [], [m["loss"].item()]
+        for _ in range(sizes["timed_steps"]):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+        want = {"fwd_lse": per_launch * n_layer * (1 if remat == "none" else 2),
+                "bwd": per_launch * n_layer}
+        row = {"ms_per_step": float(np.median(times)), "step_ms_all": times,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+               "mem_before_gb": base / 1e9,
+               "flash64_launches_per_step": launches, "losses": losses}
+        out["remat"][remat] = row
+        emit({"phase": f"outer_remat_{remat}_{sizes['model']}_b{sizes['batch']}", **row})
+        if launches != want or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"remat {remat}: launches {launches} (expected {want}), {losses}")
+        del model, tx, state, step
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # one fp32 step per policy through the kernels: the same bits. The
+    # token embedding's gradient is an indexed accumulate, which CUDA sums
+    # with atomics in any order unless deterministic algorithms are on.
+    b32 = to_device(_train_batch(np, sizes["fp32_batch"]), device)
+    model = wt.load_model(sizes["model"], device=device, seed=0)
+    whisper_optimizer(model, 1e-5, total_steps=1000)  # marks every parameter trainable
+    names = [n for n, _ in model.named_parameters()]
+    got = {}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in ("none", "full", "dots"):
+            feats = encoder_apply(model, model.dims, b32["input_ids"], dtype=torch.float32,
+                                  remat=remat)
+            logits, _ = decoder_apply(model, model.dims, b32["dec_input_ids"], feats,
+                                      dtype=torch.float32, remat=remat)
+            loss = ce_loss(logits, b32["labels"])
+            loss.backward()
+            got[remat] = (loss.detach(), [p.grad for p in model.parameters()])
+            for p in model.parameters():
+                p.grad = None
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    differ = {r: [n for n, a, b in zip(names, got[r][1], got["none"][1]) if not torch.equal(a, b)]
+              for r in ("full", "dots")}
+    same = {r: bool(torch.equal(got[r][0], got["none"][0])) and not differ[r]
+            for r in ("full", "dots")}
+    out["remat"]["fp32_equal_to_none"] = same
+    emit({"phase": "outer_remat_fp32_equal", "equal_to_none": same,
+          "loss": {r: got[r][0].item() for r in got}, "grads_differ": differ,
+          "n_grads": len(names)})
+    if not all(same.values()):
+        raise AssertionError(f"remat: fp32 losses or gradients differ across policies {same}")
+    del got, model
+
+    # (d) Adafactor at fp32: one step through the kernels and through the
+    # plain versions, on each seed. Loss and gradients are held to phase
+    # 9's gates, the update to 1e-3 of its largest magnitude: Adafactor
+    # scales each element by its row's and column's inverse RMS, so a
+    # gradient error in a row of small gradients grows by that row's
+    # factor. Two readings show it: at the worst update element, the
+    # first-order error from its gradient's and its row's and column's
+    # statistics' change against the update error measured; and the
+    # kernel run's optimizer, given the plain run's gradients, must give
+    # the plain run's update to rounding.
+    def adafactor_step(seed, grads_in=None):
+        model = wt.load_model(sizes["model"], device=device, seed=seed)
+        tx, _ = whisper_optimizer(model, 1e-3, total_steps=1000, optimizer="adafactor")
+        before = [p.detach().clone() for p in tx.params]
+        loss, grads = None, []
+        if grads_in is None:
+            grads_of = tx._grads
+
+            def capture():
+                grads.extend(g.clone() for g in grads_of())
+                return grads[-len(tx.params):]
+
+            tx._grads = capture
+            step = make_ce_train_step(model.dims, dtype=torch.float32, remat="full")
+            _, m = step(TrainState.create(model, tx),
+                        _train_batch(np, sizes["fp32_batch"], seed=seed))
+            loss = m["loss"].item()
+        else:  # the optimizer alone, on the given gradients
+            for p, g in zip(tx.params, grads_in):
+                p.grad = g.clone()
+            tx.step()
+        return loss, grads, [p.detach() - b for p, b in zip(tx.params, before)], tx
+
+    def worst(names, got, want):
+        return max(((i, n, max_err(a, b) / max(b.abs().max().item(), 1e-30))
+                    for i, (n, a, b) in enumerate(zip(names, got, want))), key=lambda x: x[2])
+
+    def explain(tx_k, tx_p, i, g_k, g_p, u_k, u_p):
+        """The worst update element of parameter i: its gradient and that
+        gradient's error, and for a factored parameter the RMS of its row
+        and column (v_row, v_col: at step 0 the mean squares of the
+        gradients along the two factored dims) against the leaf's largest,
+        their relative change between the runs, and the first-order update
+        error from the element's gradient, row, column and row mean."""
+        diff = (u_k - u_p).abs()
+        idx = tuple(int(j) for j in np.unravel_index(int(diff.argmax()), tuple(u_p.shape)))
+        g, dg = g_p[idx].item(), g_k[idx].item() - g_p[idx].item()
+        u_max = u_p.abs().max().item()
+        row = {"index": list(idx), "grad": g, "grad_err_rel": abs(dg) / g_p.abs().max().item(),
+               "update_err_rel": diff[idx].item() / u_max}
+        if tx_p.factored[i] is None:
+            return row
+        rel = dg / g  # d log u = d log g - (d log v_row - d log mean) / 2 - d log v_col / 2
+        r_dim, c_dim = tx_p.factored[i]
+        for key, reduce in (("v_row", (r_dim,)), ("v_col", (c_dim,)),
+                            ("v_row_mean", (r_dim, c_dim))):
+            at = list(idx)
+            for d in reduce:
+                at[d] = 0
+            v_k, v_p = (getattr(tx, key.replace("_mean", ""))[i] for tx in (tx_k, tx_p))
+            if key == "v_row_mean":
+                v_k, v_p = v_k.mean(c_dim, keepdim=True), v_p.mean(c_dim, keepdim=True)
+            else:
+                row[f"{key}_rms_rel"] = (v_p[tuple(at)].item() / v_p.max().item()) ** 0.5
+            change = v_k[tuple(at)].item() / v_p[tuple(at)].item() - 1
+            row[f"{key}_rel_change"] = change
+            rel += (0.5 if key == "v_row_mean" else -0.5) * change
+        row["first_order_update_err_rel"] = abs(u_p[idx].item() * rel) / u_max
+        return row
+
+    out["adafactor_fp32"] = []
+    for seed in sizes["adafactor_seeds"]:
+        loss_k, grad_k, upd_k, tx_k = adafactor_step(seed)
+        saved = flash64.flash64_forward, flash64.flash64_backward
+        flash64.flash64_forward = flash64.flash64_forward_plain
+        flash64.flash64_backward = flash64.flash64_backward_plain
+        try:
+            loss_p, grad_p, upd_p, tx_p = adafactor_step(seed)
+        finally:
+            flash64.flash64_forward, flash64.flash64_backward = saved
+        _, _, upd_c, _ = adafactor_step(seed, grads_in=grad_p)
+        w_grad, w_upd = worst(tx_k.names, grad_k, grad_p), worst(tx_k.names, upd_k, upd_p)
+        w_ctl = worst(tx_k.names, upd_c, upd_p)
+        i = w_upd[0]
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        row = {"seed": seed, "loss_kernels": loss_k, "loss_plain": loss_p,
+               "loss_rel_diff": loss_rel, "worst_grad": w_grad[1], "worst_grad_rel_err": w_grad[2],
+               "worst_update": w_upd[1], "worst_update_rel_err": w_upd[2],
+               "worst_update_element": explain(tx_k, tx_p, i, grad_k[i], grad_p[i], upd_k[i],
+                                               upd_p[i]),
+               "plain_grads_update_rel_err": w_ctl[2],
+               "factored_params": sum(f is not None for f in tx_k.factored),
+               "params": len(tx_k.names), "state_bytes": tx_k.state_bytes()}
+        out["adafactor_fp32"].append(row)
+        emit({"phase": f"outer_adafactor_fp32_kernel_vs_plain_seed{seed}", **row})
+        if loss_rel > 1e-5 or w_grad[2] > 1e-4 or w_upd[2] > 1e-3 or w_ctl[2] > 1e-6:
+            raise AssertionError(f"adafactor fp32: kernels vs plain {row}")
+        del grad_k, grad_p, upd_k, upd_p, upd_c, tx_k, tx_p
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # (e) SpecAugment on the device against the CPU with the same draws
+    p = sa.PRESETS["ls-double"]
+    nb, nt = sizes["batch"], sizes["spec_frames"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    frames = torch.tensor([nt, nt - 100, nt * 5 // 6, nt // 2, nt // 4, nt // 10, 90, 20][:nb],
+                          device=device)
+    x = torch.randn((nb, nt, 80), generator=gen, device=device)
+    draws = sa.spec_augment_draws(gen, frames, 80, **p)
+    on_dev = sa.spec_augment_apply(x, frames, draws)
+    on_cpu = sa.spec_augment_apply(x.cpu(), frames.cpu(), draws.cpu())
+    spec = {"bit_equal_cpu": bool(torch.equal(on_dev.cpu(), on_cpu)),
+            "masked_share": float((on_cpu == 0).float().mean())}
+    if cuda:
+        spec["card_ms_per_batch"] = time_ms(lambda: sa.spec_augment_torch(gen, x, frames, **p), 20)
+    xs, fs = x.cpu().numpy(), frames.cpu().numpy()
+    host_rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for i in range(nb):
+            sa.spec_augment_np(xs[i], int(fs[i]), rng=host_rng, **p)
+    spec["host_np_ms_per_batch"] = (time.perf_counter() - t0) / 3 * 1e3
+    out["spec_augment"] = spec
+    emit({"phase": f"outer_spec_augment_b{nb}x{nt}x80", **spec})
+    if not spec["bit_equal_cpu"]:
+        raise AssertionError("spec_augment: the card's mask differs from the CPU's")
+
+    # (f) the examples at full width; the launches' shapes are recorded, and
+    # demo's decode steps must run at the shapes held against the plain
+    # version above
+    platform = [] if cuda else ["--platform", "cpu"]
+    n_text = wt.MODEL_DIMS[sizes["examples_model"]].n_text_layer
+    n_audio = wt.MODEL_DIMS[sizes["examples_model"]].n_audio_layer
+    held = {tuple(r["cache"][:1] + r["cache"][2:] + [r["heads"]])
+            for r in out["kernels_vs_plain"] if r["kernel"] == "decode_attn"}
+    calls, restore = _count_decoder_calls(decoding)
+    seen = _Launches(flash64, decode_attn)
+    try:
+        t0 = time.perf_counter()
+        rows = eval_table.main([*platform, "--model-type", sizes["examples_model"],
+                                "--beam-size", str(BEAM), "--synthetic", str(sizes["synthetic"]),
+                                "--sample-len", str(SAMPLE_LEN), "--snrs", "1000,0",
+                                "--langs", "en,ru"])
+        sync()
+        wall = time.perf_counter() - t0
+        n_batches = 8  # 2 systems x 2 languages x 2 SNRs, one batch of --synthetic each
+        steps_run = calls["n"] - n_batches
+        got = seen.read(torch)
+        launches = {"flash64": got["flash64_fwd"], "decode_attn": got["decode_attn"]}
+        want = {"flash64": per_launch * n_audio * n_batches,
+                "decode_attn": per_launch * n_text * steps_run}
+        out["eval_table"] = {"rows": [[r[0], r[1], {str(k): v for k, v in r[2].items()}]
+                                      for r in rows],
+                             "wall_s": wall, "launches": launches, "incremental_steps": steps_run,
+                             "shapes": got["shapes"]}
+        emit({"phase": f"outer_eval_table_{sizes['examples_model']}_beam{BEAM}",
+              **out["eval_table"]})
+        if launches != want or len(rows) != 4:
+            raise AssertionError(f"eval_table: launches {launches}, expected {want}")
+        out["demo"] = {}
+        for name, beam in (("greedy", []), ("beam15", ["--beam_size", str(BEAM)])):
+            calls["n"] = 0
+            seen.reset()
+            t0 = time.perf_counter()
+            drows = demo.main([*platform, "--model", sizes["examples_model"], *beam])
+            sync()
+            got = seen.read(torch)
+            launches = {"flash64": got["flash64_fwd"], "decode_attn": got["decode_attn"]}
+            want = {"flash64": per_launch * n_audio,
+                    "decode_attn": per_launch * n_text * (calls["n"] - 1)}
+            out["demo"][name] = {"wall_s": time.perf_counter() - t0, "launches": launches,
+                                 "incremental_steps": calls["n"] - 1, "shapes": got["shapes"],
+                                 "texts": [r["text"][:80] for r in drows if "text" in r]}
+            emit({"phase": f"outer_demo_{sizes['examples_model']}_{name}", **out["demo"][name]})
+            unheld = [sh for sh in got["shapes"]["decode_attn"] if tuple(sh) not in held]
+            if launches != want or unheld or not all(np.isfinite(r["avg_logprob"])
+                                                     for r in drows if "avg_logprob" in r):
+                raise AssertionError(f"demo {name}: launches {launches}, expected {want}; "
+                                     f"decode shapes not held against the plain version {unheld}")
+    finally:
+        seen.restore()
+        restore()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2610,6 +3089,10 @@ def main() -> int:
     # -- 19. data and tensor parallelism ---------------------------------------
     phase_parallel(torch)
     mark("19")
+
+    # -- 20. native helpers, Adafactor, remat policies, SpecAugment, examples --
+    phase_outer(torch)
+    mark("20")
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -3,8 +3,11 @@
 Items, collated batches and sampler orders are compared exactly (token
 ids, lengths, orders) and the mels to 1e-5 (fp32 on both sides: the JAX
 frontend is a matmul DFT, the port an FFT). SpecAugment and the noise mix
-are numpy on both sides and bit-equal from the same rng (the JAX package's
-ctypes noise helper is switched off, so both take the numpy mix).
+are bit-equal from the same rng: the noise mix both on each package's
+default path (the C helper of ``native/`` wherever ``cc`` builds it, as
+here) and with both helpers switched off (the numpy mix). The on-device
+SpecAugment, given the draws that replay JAX's key splits, equals
+``spec_augment_jax`` bit for bit.
 """
 
 import json
@@ -22,6 +25,10 @@ from whisper_flamingo_tpu.data import translations as jtranslations
 from whisper_flamingo_tpu.ops import spec_augment as jspec
 from whisper_flamingo_tpu.tokenizer import get_tokenizer as jget_tokenizer
 
+import jax
+import torch
+
+from whisper_flamingo_tpu_torch import metrics, native
 from whisper_flamingo_tpu_torch.data import collator, dataset, noise, samplers, translations
 from whisper_flamingo_tpu_torch.ops import spec_augment
 from whisper_flamingo_tpu_torch.tokenizer import get_tokenizer
@@ -31,7 +38,9 @@ MEL_TOL = 1e-5
 
 @pytest.fixture
 def numpy_noise(monkeypatch):
+    """Both packages' C helpers switched off: both take the numpy mix."""
     monkeypatch.setattr(jnative, "AVAILABLE", False)
+    monkeypatch.setattr(native, "AVAILABLE", False)
 
 
 def _noise_wavs(rng):
@@ -54,6 +63,16 @@ def _same_item(a, b):
             np.testing.assert_allclose(a[k], np.asarray(b[k]), atol=MEL_TOL, rtol=0)
         else:
             assert a[k] == b[k], k
+
+
+def test_items_equal_jax_on_the_default_noise_path():
+    """Noisy, augmented items with each package's default mix (the C helper)."""
+    assert native.AVAILABLE and jnative.AVAILABLE
+    kw = dict(spec_augment="ls-double", noise_prob=1.0,
+              noise_wavs=_noise_wavs(np.random.default_rng(0)), noise_snr=(0, 10))
+    mine, ref = _datasets(**kw)
+    for i in range(len(mine)):
+        _same_item(mine[i], ref[i])
 
 
 @pytest.mark.parametrize("augment", [False, True])
@@ -142,9 +161,16 @@ def test_loaders_yield_the_same_batches():
             np.testing.assert_array_equal(g["dec_input_ids"], w["dec_input_ids"])
 
 
-def test_hf_source_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        dataset.HFAsrSource("librispeech_asr", split="train")
+def test_hf_source_is_not_ported_yet(monkeypatch):
+    """``HFAsrSource`` is ported (``test_torch_hf_sources.py`` holds it
+    against JAX's): it loads through ``datasets`` and serves 16 kHz rows."""
+    hf = pytest.importorskip("datasets")
+    monkeypatch.setattr(hf, "load_dataset", lambda name, config=None, split=None, **kw:
+                        hf.Dataset.from_dict({"audio": [{"array": np.ones(800, np.float32),
+                                                         "sampling_rate": 8000}],
+                                              "text": ["HELLO"]}))
+    src = dataset.HFAsrSource("librispeech_asr", split="train")
+    assert len(src) == 1 and src[0].text == "HELLO" and len(src[0].audio) == 1600
 
 
 def _write_wav(path, n, seed):
@@ -189,3 +215,109 @@ def test_file_sources_and_translations_equal_jax(tmp_path):
             np.testing.assert_array_equal(a.audio, b.audio)
             assert (a.text, a.id, a.translations, a.prompt) == (b.text, b.id, b.translations, b.prompt)
     assert pairs[2][0][1].translations == ["HOLA", ""]
+
+
+# -- the native helpers --------------------------------------------------------
+
+def _clips(n, seed=0):
+    """n seeded 3 s clips at int16 scale, noise of other lengths, SNRs in -5..10 dB."""
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(48000).astype(np.float32) * rng.uniform(500, 8000),
+             [rng.standard_normal(int(rng.integers(8000, 60000))).astype(np.float32) * 3000],
+             float(rng.uniform(-5, 10)), int(rng.integers(0, 2**31)))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("path", ["default", "numpy"])
+def test_add_noise_bit_equal_jax_over_200_clips(monkeypatch, path):
+    """The default path mixes through the C helper in double precision in
+    both packages (it used to differ from the port's fp32 numpy mix in 1 of
+    ~8,000 samples); forced to numpy, both take the numpy mix."""
+    if path == "numpy":
+        monkeypatch.setattr(jnative, "AVAILABLE", False)
+        monkeypatch.setattr(native, "AVAILABLE", False)
+    else:
+        assert native.AVAILABLE and jnative.AVAILABLE
+    for clean, wavs, snr, seed in _clips(200):
+        got = noise.add_noise(clean, wavs, snr, np.random.default_rng(seed))
+        want = jnoise.add_noise(clean, wavs, snr, np.random.default_rng(seed))
+        assert got.dtype == np.int16
+        np.testing.assert_array_equal(got, want)
+
+
+def test_native_helpers_match_their_python_paths():
+    """The C edit distance equals the numpy DP; the C resampler equals
+    np.interp within fp32 rounding; the library builds under build/."""
+    assert native.lib_path().startswith(native.BUILD_DIR)
+    rng = np.random.default_rng(4)
+    for _ in range(20):
+        a = rng.integers(0, 5, size=int(rng.integers(0, 30))).tolist()
+        b = rng.integers(0, 5, size=int(rng.integers(0, 30))).tolist()
+        got = metrics.edit_distance(a, b)
+        native_ok = native.AVAILABLE
+        try:
+            native.AVAILABLE = False
+            want = metrics.edit_distance(a, b)
+        finally:
+            native.AVAILABLE = native_ok
+        assert got == want
+    x = rng.standard_normal(8000).astype(np.float32)
+    from whisper_flamingo_tpu_torch.audio import resample_linear
+
+    np.testing.assert_allclose(native.resample_linear(x, 8000, 16000),
+                               resample_linear(x, 8000, 16000), atol=1e-6)
+    assert native.mix_noise(np.zeros(0, np.float32), x, 0.0) is None  # rc != 0
+
+
+# -- SpecAugment on the device -------------------------------------------------
+
+def _jax_draws(key, b, n_mels, frames, p):
+    """spec_augment_jax's integers, replayed from its key splits."""
+    n_f, n_t = p["n_freq_mask"], p["n_time_mask"]
+    out = np.zeros((b, n_f + n_t, 3), np.int64)
+    for row, k in enumerate(jax.random.split(key, b)):
+        kf = jax.random.split(k, n_f + n_t)
+        for i in range(n_f + n_t):
+            k1, k2, k3 = jax.random.split(kf[i], 3)
+            max_w = p["max_freq_width"] if i < n_f else p["max_time_width"]
+            w = int(jax.random.randint(k1, (), 0, max_w))
+            end = int(jax.random.randint(k2, (), 0, max_w))
+            high = n_mels - w if i < n_f else int(frames[row]) - w
+            out[row, i] = (w, end, int(jax.random.randint(k3, (), 0, max(high, 1))))
+    return out
+
+
+@pytest.mark.parametrize("preset", sorted(spec_augment.PRESETS))
+def test_spec_augment_apply_equals_spec_augment_jax(preset):
+    """Rows whose frames fall below the mask widths (0, 3, 20, 90) take
+    JAX's degenerate ranges and gates."""
+    p = spec_augment.PRESETS[preset]
+    frames = np.array([0, 3, 20, 90, 250, 300], np.int32)
+    x = np.random.default_rng(6).standard_normal((6, 300, 80)).astype(np.float32)
+    for seed in range(4):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(jspec.spec_augment_jax(key, x, frames, **p))
+        draws = torch.from_numpy(_jax_draws(key, 6, 80, frames, p))
+        got = spec_augment.spec_augment_apply(
+            torch.from_numpy(x), torch.from_numpy(frames), draws, p["n_freq_mask"])
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_spec_augment_draws_cover_jaxs_ranges():
+    """The draws lie in JAX's ranges (per-row highs included, at least 1),
+    reach their ends, and repeat from one generator seed."""
+    p = spec_augment.PRESETS["ls-double"]
+    frames = torch.tensor([0, 5, 40, 99, 100, 101, 3000] * 300)
+    g = torch.Generator().manual_seed(0)
+    d = spec_augment.spec_augment_draws(g, frames, 80, **p)
+    assert d.shape == (len(frames), 4, 3) and d.dtype == torch.int64
+    w, start = d[..., 0], d[..., 2]
+    assert int(d[:, :2, :2].max()) == 26 and int(d[:, 2:, :2].max()) == 99 and int(d.min()) == 0
+    assert bool((start[:, :2] < torch.clamp(80 - w[:, :2], min=1)).all())
+    assert bool((start[:, 2:] < torch.clamp(frames[:, None] - w[:, 2:], min=1)).all())
+    assert int(start[frames == 3000][:, 2:].max()) > 2800
+    again = spec_augment.spec_augment_draws(torch.Generator().manual_seed(0), frames, 80, **p)
+    assert torch.equal(d, again)
+    x = torch.randn(7, 300, 80)
+    out = spec_augment.spec_augment_torch(torch.Generator().manual_seed(1), x, frames[:7], **p)
+    assert out.shape == x.shape and bool(((out == x) | (out == 0)).all())

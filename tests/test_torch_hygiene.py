@@ -46,6 +46,11 @@ import whisper_flamingo_tpu_torch.models.legacy
 import whisper_flamingo_tpu_torch.recipes.av_train, whisper_flamingo_tpu_torch.recipes.decode_av
 import whisper_flamingo_tpu_torch.parallel.mesh, whisper_flamingo_tpu_torch.parallel.distributed
 import whisper_flamingo_tpu_torch.parallel.tp, whisper_flamingo_tpu_torch.parallel.dryrun
+import whisper_flamingo_tpu_torch.native, whisper_flamingo_tpu_torch.tools.transkd_flagship_probe
+import whisper_flamingo_tpu_torch.examples.demo, whisper_flamingo_tpu_torch.examples.eval_table
+# importing builds no native library and imports no datasets
+assert not whisper_flamingo_tpu_torch.native._TRIED
+assert "datasets" not in sys.modules
 from whisper_flamingo_tpu_torch.config import TrainConfig
 from whisper_flamingo_tpu_torch.recipes.common import build_conditioner
 # the offline conditioner (no HF cache: HF_HOME is an empty directory)
@@ -97,7 +102,9 @@ def test_sources_name_no_jax_module():
                 "recipes/transkd_asr", "recipes/distil_prompt", "recipes/evaluate",
                 "recipes/generate_pseudo_labels", "recipes/decode_matrix",
                 "recipes/keyword_stats", "models/visual", "models/avhubert",
-                "models/legacy", "recipes/av_train", "recipes/decode_av"):
+                "models/legacy", "recipes/av_train", "recipes/decode_av",
+                "native/__init__", "examples/demo", "examples/eval_table",
+                "tools/transkd_flagship_probe"):
         assert f"whisper_flamingo_tpu_torch/{mod}.py" in names
     for path in _sources():
         with open(path) as fh:
@@ -126,6 +133,19 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     model = wt.load_model("debug", device="cpu")
     assert model.device.type == "cpu"
     assert wt.log_mel_spectrogram(np.zeros(16000, np.float32), device="cpu").shape == (80, 100)
+
+
+def test_examples_and_probe_need_a_device(monkeypatch):
+    """The examples and the flagship probe run on the card unless asked for
+    the CPU (``--platform cpu`` / ``--device cpu``)."""
+    from whisper_flamingo_tpu_torch.examples import demo, eval_table
+    from whisper_flamingo_tpu_torch.tools import transkd_flagship_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (lambda: demo.main([]), lambda: eval_table.main(["--model-type", "debug"]),
+                lambda: transkd_flagship_probe.main(["debug", "debug", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
 
 
 # the text recipes with the smoke config each reads (keyword_stats reads no

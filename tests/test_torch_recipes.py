@@ -77,13 +77,14 @@ def test_config_reads_the_shared_yaml_as_jax_does():
     assert cfg.extras["platform"] == "cpu"  # read, not applied
 
 
-def test_load_config_overrides_and_unported_parts():
+def test_load_config_overrides_and_unported_parts(tmp_path):
     cfg = common.load_config([SMOKE, "device=cpu", "warmup_steps=3", "lang=de"])
     assert (cfg.device, cfg.warmup_steps, cfg.lang) == ("cpu", 3, "de")
     with pytest.raises(ValueError, match="torchrun"):  # no process group to join
         common.setup_mesh(TrainConfig(num_devices=2))
-    with pytest.raises(NotImplementedError):
-        whisper_ft.main([SMOKE, "device=cpu", "optimizer=adafactor", "num_train_steps=0"])
+    state = whisper_ft.main([SMOKE, "device=cpu", "optimizer=adafactor", "num_train_steps=0",
+                             f"log_output_dir={tmp_path}/logs", f"check_output_dir={tmp_path}/ckpt"])
+    assert type(state.optimizer).__name__ == "Adafactor" and state.optimizer.count == 0
 
 
 def test_module_entry_point_runs(tmp_path):

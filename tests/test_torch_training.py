@@ -188,19 +188,20 @@ def test_three_steps_params_and_adam_moments_match_optax():
 
 
 def test_remat_full_gives_the_same_step():
-    """remat trades memory only: one step with "full" equals one with
-    "none" bit for bit on the CPU."""
+    """remat trades memory only: one step with "full", and one with the
+    selective "dots", equals one with "none" bit for bit on the CPU."""
     out = []
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         _, model, _ = _pair()
         tx, _ = optim.whisper_optimizer(model, 1e-3)
         state, m = steps.make_ce_train_step(DIMS, dtype=torch.float32, remat=remat)(
             steps.TrainState.create(model, tx), _batch())
         out.append((m["loss"].item(), [p.detach().clone() for p in model.parameters()]))
-    assert out[0][0] == out[1][0]
-    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
-    with pytest.raises(NotImplementedError):
-        tw._remat_wrap(lambda x: x, "dots")
+    for loss, params in out[1:]:
+        assert loss == out[0][0]
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], params))
+    with pytest.raises(ValueError):
+        tw._remat_wrap(lambda x: x, "save_only_these_names")
 
 
 def test_freeze_encoder_leaves_the_encoder_unchanged():

@@ -186,7 +186,38 @@ def one_by_one(rank: int, device, spec: Dict[str, Any]) -> Dict[str, Any]:
             "none": train(dict(spec, mesh=None), None)}
 
 
-KINDS = {"train": train, "decode": decode, "layout": layout, "collectives": collectives}
+def adafactor(spec: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """Adafactor (weight decay, global-norm clipping) in float64 fed the
+    full gradients ``spec["grads"]`` (one dict per update): each rank takes
+    its model shard, and data rank ``d`` of ``n`` the gradients scaled by
+    ``1 + (2d + 1 - n) / 2`` (their mean is the given gradients, exactly).
+    Returns the full parameters and factored state after the updates."""
+    model = load(spec).double()
+    tx, _ = whisper_optimizer(model, 1e-2, optimizer="adafactor", weight_decay=0.01,
+                              total_steps=10, max_grad_norm=spec.get("max_grad_norm"))
+    scale, index = 1.0, 0
+    if mesh is not None:
+        shard_params(model, mesh)
+        tx.shard(mesh, model.tp_dims)
+        scale = 1.0 + (2 * mesh.data_index + 1 - mesh.n_data) / 2
+        index = mesh.model_index
+    dims_of = getattr(model, "tp_dims", {})
+    for grads in spec["grads"]:
+        for name, p in model.named_parameters():
+            g = torch.from_numpy(grads[name]) * scale
+            dim = dims_of.get(name)
+            if dim is not None:
+                g = g.narrow(dim, index * p.shape[dim], p.shape[dim])
+            p.grad = g.clone()
+        tx.step()
+    params = gather_named(dict(model.named_parameters()), dims_of, mesh)
+    state_dict = tx.full_state_dict()
+    return {"params": {n: p.detach().numpy() for n, p in params.items()},
+            **{key: [t.numpy() for t in state_dict[key]] for key in ("v_row", "v_col", "v")}}
+
+
+KINDS = {"train": train, "decode": decode, "layout": layout, "collectives": collectives,
+         "adafactor": adafactor}
 
 
 def run(rank: int, device, specs: List[Dict[str, Any]]) -> List[Any]:

@@ -45,7 +45,7 @@ class TrainConfig:
     teacher_ckpt: str = ""
     resume_training: bool = False
 
-    # optimization ("adafactor" is not ported yet and raises)
+    # optimization: "adamw" or "adafactor"
     optimizer: str = "adamw"
     learning_rate: float = 1e-5
     weight_decay: float = 0.01
@@ -56,7 +56,10 @@ class TrainConfig:
     gradient_accumulation_steps: int = 1
     max_grad_norm: float = 0.0  # 0 = no clipping (the reference never clips)
     precision: str = "16-mixed"  # "16-mixed" -> bfloat16 compute
-    # "full" (per-block recompute in the backward) or "none"
+    # "full" (per-block recompute in the backward), "none", or an
+    # argument-free jax.checkpoint_policies name such as "dots" (selective
+    # recompute, models/whisper.REMAT_POLICIES). On the H100 "full" is both
+    # faster and smaller than "dots" (README, chip_smoke.py phase 20)
     remat: str = "full"
 
     # data

@@ -9,6 +9,10 @@ gated sub-blocks stacked (layer, lang)) and returns the port's state dict
 Any pytree shaped like the parameters crosses the same way: gradients and
 Adam moments (e.g. ``opt_state[0].mu``) come out keyed by parameter name,
 for comparison with the port's ``.grad`` and optimizer state.
+:func:`jax_leaf` gives the way back, a port parameter's place in the JAX
+tree (its stacked leaf, its indices there, its axis order); the
+converters and the optimizer's Adafactor, which works on JAX's leaves,
+read the layout from here.
 :func:`video_params_from_jax` does the same for the AV-HuBERT trunk (and
 :func:`visual_frontend_from_jax` for the lip-video frontend alone), into
 the port's fairseq-keyed modules. It imports nothing of JAX: convert the
@@ -17,13 +21,46 @@ pytree with ``jax.tree.map(np.asarray, tree)`` first.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .models.dims import ModelDimensions
 from .models.whisper import ModelExtras
+
+# The JAX package's layout. Each permutation is its own inverse: it takes
+# a JAX array to the torch layout, and lists a torch parameter's dims in
+# the JAX leaf's axis order.
+LINEAR_AXES = (1, 0)  # a linear's weight: (in, out) in JAX, (out, in) here
+CONV_AXES = (2, 1, 0)  # a conv1d's weight: (k, in, out) in JAX, (out, in, k) here
+STACKED = ("blocks", "gated_x_attn_layers")  # stacked on leading axes: the layer, the stream
+
+
+class JaxLeaf(NamedTuple):
+    """A port parameter's place in the JAX tree."""
+
+    key: str  # the stacked leaf: the name with each stacked index as "*"
+    index: Tuple[int, ...]  # the parameter's indices along the leaf's stacked axes
+    axes: Tuple[int, ...]  # its torch dims in the leaf's per-layer axis order
+
+
+def jax_leaf(model: nn.Module, name: str) -> JaxLeaf:
+    """Where parameter ``name`` of ``model`` lives in the JAX tree."""
+    parts, index = name.split("."), []
+    for i in range(1, len(parts)):
+        if parts[i - 1] in STACKED and parts[i].isdigit():
+            index.append(int(parts[i]))
+            parts[i] = "*"
+    owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
+    if name.endswith(".weight") and isinstance(owner, nn.Linear):
+        axes = LINEAR_AXES
+    elif name.endswith(".weight") and isinstance(owner, nn.Conv1d):
+        axes = CONV_AXES
+    else:
+        axes = tuple(range(model.get_parameter(name).dim()))
+    return JaxLeaf(".".join(parts), tuple(index), axes)
 
 
 def _t(a) -> torch.Tensor:
@@ -39,7 +76,7 @@ def params_from_jax(
         raise ValueError("extras.add_gated_x_attn does not match the tree's gated blocks")
 
     for name in ("conv1", "conv2"):
-        out[f"encoder.{name}.weight"] = _t(np.asarray(enc[name]["w"]).transpose(2, 1, 0))
+        out[f"encoder.{name}.weight"] = _t(np.asarray(enc[name]["w"]).transpose(CONV_AXES))
         out[f"encoder.{name}.bias"] = _t(enc[name]["b"])
     out["encoder.ln_post.weight"] = _t(enc["ln_post"]["scale"])
     out["encoder.ln_post.bias"] = _t(enc["ln_post"]["bias"])
@@ -48,7 +85,8 @@ def params_from_jax(
     out["decoder.ln.weight"] = _t(dec["ln"]["scale"])
     out["decoder.ln.bias"] = _t(dec["ln"]["bias"])
     if "xt_projection" in dec:
-        out["decoder.xt_projection.weight"] = _t(np.asarray(dec["xt_projection"]["w"]).T)
+        w = np.asarray(dec["xt_projection"]["w"])
+        out["decoder.xt_projection.weight"] = _t(w.transpose(LINEAR_AXES))
         out["decoder.xt_projection.bias"] = _t(dec["xt_projection"]["b"])
 
     def sel(a, idx):
@@ -56,7 +94,7 @@ def params_from_jax(
 
     def attn(prefix: str, tree_: Mapping[str, Any], idx) -> None:
         for tk, ours in (("query", "q"), ("key", "k"), ("value", "v"), ("out", "out")):
-            out[f"{prefix}.{tk}.weight"] = _t(sel(tree_[ours]["w"], idx).T)
+            out[f"{prefix}.{tk}.weight"] = _t(sel(tree_[ours]["w"], idx).transpose(LINEAR_AXES))
             if "b" in tree_[ours] and tk != "key":
                 out[f"{prefix}.{tk}.bias"] = _t(sel(tree_[ours]["b"], idx))
 
@@ -65,9 +103,9 @@ def params_from_jax(
         out[f"{prefix}.bias"] = _t(sel(tree_["bias"], idx))
 
     def mlp(prefix: str, tree_: Mapping[str, Any], i: int) -> None:
-        out[f"{prefix}.0.weight"] = _t(sel(tree_["fc1"]["w"], i).T)
+        out[f"{prefix}.0.weight"] = _t(sel(tree_["fc1"]["w"], i).transpose(LINEAR_AXES))
         out[f"{prefix}.0.bias"] = _t(sel(tree_["fc1"]["b"], i))
-        out[f"{prefix}.2.weight"] = _t(sel(tree_["fc2"]["w"], i).T)
+        out[f"{prefix}.2.weight"] = _t(sel(tree_["fc2"]["w"], i).transpose(LINEAR_AXES))
         out[f"{prefix}.2.bias"] = _t(sel(tree_["fc2"]["b"], i))
 
     def blocks(side: str, tree_: Mapping[str, Any], n_layer: int, cross: bool) -> None:
@@ -146,7 +184,7 @@ def video_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tenso
         w, b = np.asarray(p["w"]), np.asarray(p["b"])
         if idx is not None:
             w, b = w[idx], b[idx]
-        out[f"{name}.weight"] = _t(w.T)
+        out[f"{name}.weight"] = _t(w.transpose(LINEAR_AXES))
         out[f"{name}.bias"] = _t(b)
 
     def ln(name: str, p: Mapping[str, Any], idx=None) -> None:
@@ -157,7 +195,8 @@ def video_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tenso
         out[f"{name}.bias"] = _t(b)
 
     lin("feature_extractor_video.proj", tree["proj"])
-    out["encoder.pos_conv.0.weight"] = _t(np.asarray(tree["pos_conv"]["w"]).transpose(2, 1, 0))
+    pos_conv = np.asarray(tree["pos_conv"]["w"])
+    out["encoder.pos_conv.0.weight"] = _t(pos_conv.transpose(CONV_AXES))
     out["encoder.pos_conv.0.bias"] = _t(tree["pos_conv"]["b"])
     ln("encoder.layer_norm", tree["ln_post" if cfg.layer_norm_first else "ln_pre"])
     blocks = tree["blocks"]

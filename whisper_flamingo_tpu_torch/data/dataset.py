@@ -8,15 +8,13 @@ Port of ``whisper_flamingo_tpu/data/dataset.py``: the reference's shared
     labels = shifted + EOT, prompt/translation attachments per family
 
 as one :class:`SpeechDataset` over an :class:`AsrSource`, with the
-synthetic, manifest and JSON sources. The per-example numpy rng is the JAX
+synthetic, manifest, JSON and HuggingFace ``datasets`` sources. The
+per-example numpy rng is the JAX
 package's, so the same seed, index and epoch give the same noise and
 SpecAugment draws; the mel is the port's ``audio.log_mel_spectrogram`` on
 the CPU (host-side example preparation, as in the JAX package).
 :class:`DataLoader` batches through a sampler and a collator;
 :class:`PrefetchLoader` prepares batches in a background thread.
-
-:class:`HFAsrSource` (HuggingFace ``datasets`` with a local cache) is not
-ported yet and raises.
 """
 
 from __future__ import annotations
@@ -168,14 +166,108 @@ class JsonAsrSource(AsrSource):
         )
 
 
+# Per-dataset field quirks of the reference scripts. Keys: text_key;
+# translation_keys (the conditioning streams, in order); prompt_keys
+# (joined with "_": the kloka prompt is "language_dialect"); filter_nonempty
+# (drop rows whose field is empty: the empty-"chinese" rows of kloka);
+# split_names (our split -> (dataset suffix, HF split): the kloka train and
+# eval corpora are separate datasets whose HF split is always "train").
+HF_DATASET_PRESETS = {
+    "google/fleurs": {"text_key": "transcription"},
+    "formospeech/kloka_crawled_asr": {
+        "text_key": "text",
+        "translation_keys": ("chinese",),
+        "prompt_keys": ("language", "dialect"),
+        "filter_nonempty": "chinese",
+        "split_names": {
+            "train": ("_train", "train"),
+            "validation": ("_eval", "train"),
+            "test": ("_eval", "train"),
+        },
+    },
+    "formospeech/yttd_taigi_trs": {"text_key": "text"},
+}
+
+
 class HFAsrSource(AsrSource):
     """HuggingFace ``datasets`` source (librispeech_asr, google/fleurs,
-    formospeech/*): not ported yet (it needs ``datasets`` and a local HF
-    cache)."""
+    formospeech/*), a port of the JAX package's, with its quirks:
 
-    def __init__(self, name: str, split: str, config: Optional[str] = None, **kwargs):
-        raise NotImplementedError(
-            "HFAsrSource is not ported yet: use the synthetic, manifest or JSON sources"
+    - the preset whose name prefixes ``name`` gives the field maps
+      (overridable per instance);
+    - ``config`` may be a "+"-joined list of config names, each loaded and
+      then concatenated (kloka dialects);
+    - rows whose ``filter_nonempty`` field is empty are dropped per config,
+      with the count printed;
+    - ``split_names`` remaps the split: a name that already ends in this
+      split's suffix keeps it and only the HF split changes; any other
+      name gets the suffix appended (a name with another split's suffix
+      then names no dataset and fails at load, instead of serving the
+      wrong corpus);
+    - audio off 16 kHz is resampled linearly to it.
+
+    ``datasets`` is imported at construction (it needs a local cache
+    offline)."""
+
+    def __init__(
+        self,
+        name: str,
+        split: str,
+        config: Optional[str] = None,
+        text_key: Optional[str] = None,
+        audio_key: str = "audio",
+        translation_keys: Optional[Sequence[str]] = None,
+        prompt_keys: Optional[Sequence[str]] = None,
+        filter_nonempty: Optional[str] = None,
+        **load_kwargs,
+    ):
+        import datasets
+
+        preset = next((v for k, v in HF_DATASET_PRESETS.items() if name.startswith(k)), {})
+        self.text_key = text_key or preset.get("text_key", "text")
+        self.audio_key = audio_key
+        self.translation_keys = (translation_keys if translation_keys is not None
+                                 else preset.get("translation_keys", ()))
+        self.prompt_keys = prompt_keys if prompt_keys is not None else preset.get("prompt_keys", ())
+        filter_nonempty = filter_nonempty or preset.get("filter_nonempty")
+
+        split_names = preset.get("split_names")
+        if split_names and split in split_names:
+            suffix, hf_split = split_names[split]
+            if name.endswith(suffix):
+                split = hf_split
+            else:
+                name, split = name + suffix, hf_split
+
+        configs = [c.strip() for c in config.split("+")] if config else [None]
+        parts = []
+        for cfg_name in configs:
+            ds = datasets.load_dataset(name, cfg_name, split=split, **load_kwargs)
+            if filter_nonempty:
+                n0 = len(ds)
+                ds = ds.filter(lambda ex: str(ex.get(filter_nonempty, "") or "").strip() != "")
+                print(f"{name}[{cfg_name}]: {n0} rows, "
+                      f"{len(ds)} after non-empty {filter_nonempty!r} filter")
+            parts.append(ds)
+        self.ds = parts[0] if len(parts) == 1 else datasets.concatenate_datasets(parts)
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def __getitem__(self, idx: int) -> AsrExample:
+        row = self.ds[int(idx)]
+        audio = row[self.audio_key]
+        wav = np.asarray(audio["array"], dtype=np.float32)
+        if audio.get("sampling_rate", 16000) != 16000:
+            from ..audio import resample_linear
+
+            wav = resample_linear(wav, audio["sampling_rate"], 16000)
+        return AsrExample(
+            audio=wav,
+            text=row[self.text_key],
+            id=str(row.get("id", idx)),
+            translations=[str(row[k]) for k in self.translation_keys if k in row],
+            prompt="_".join(str(row[k]) for k in self.prompt_keys if k in row),
         )
 
 

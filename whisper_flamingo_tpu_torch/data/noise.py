@@ -3,9 +3,9 @@
 Port of ``whisper_flamingo_tpu/data/noise.py`` (the reference's
 ``select_noise`` / ``add_noise``): a random noise pick from a list, an
 integer-or-range SNR, the noise tiled or cropped to the clean length,
-RMS-matched scaling, the int16 clipping guard, int16 output. It takes the
-numpy mix path; the JAX package's ctypes helper (``native/wf_native.c``)
-is not ported.
+RMS-matched scaling, the int16 clipping guard, int16 output. As in the
+JAX package, the mix goes through the C helper (``native.mix_noise``,
+double precision) whenever it builds, and through numpy in fp32 otherwise.
 """
 
 from __future__ import annotations
@@ -46,6 +46,13 @@ def add_noise(
         snr = int(rng.integers(noise_snr[0], noise_snr[1] + 1))
     else:
         raise TypeError(f"unsupported noise_snr: {noise_snr!r}")
+
+    from .. import native
+
+    if native.AVAILABLE:
+        mixed = native.mix_noise(clean_wav, noise_wav, snr)
+        if mixed is not None:
+            return mixed.astype(np.int16)
 
     clean_rms = np.sqrt(np.mean(np.square(clean_wav), axis=-1))
     if len(clean_wav) > len(noise_wav):

@@ -5,9 +5,8 @@ the JAX package): ``wer_cer`` splits characters with the ``replace('', '
 ')`` trick and words on whitespace; ``fairseq_wer`` is the published 13a
 protocol; ``token_accuracy`` masks every position after the first EOT.
 
-Left out: the ctypes edit-distance helper of ``native/wf_native.c`` (it
-belongs to the data slice; see ROADMAP.md). :func:`edit_distance` is the
-two-row numpy DP, which gives the same integers.
+:func:`edit_distance` takes the C helper (``native.edit_distance``) when it
+builds and the two-row numpy DP otherwise, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -18,7 +17,16 @@ import numpy as np
 
 
 def edit_distance(a: Sequence, b: Sequence) -> int:
-    """Levenshtein distance, a two-row DP over hashed tokens."""
+    """Levenshtein distance over hashed tokens: the C helper when it
+    builds, else a two-row numpy DP."""
+    from . import native
+
+    if native.AVAILABLE:
+        a_ids = np.array([hash(x) for x in a], dtype=np.int64)
+        b_ids = np.array([hash(x) for x in b], dtype=np.int64)
+        result = native.edit_distance(a_ids, b_ids)
+        if result is not None:
+            return result
     if len(a) < len(b):
         a, b = b, a
     if len(b) == 0:

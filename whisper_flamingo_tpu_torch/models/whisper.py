@@ -53,8 +53,7 @@ computes), the in-loop one-hot beam reorder (``row_perm``; the decode loop
 reorders the self cache with ``index_select``), the transposed
 (B, H, Dh, T) slabs, the fused QKV projection (int8 quantizes q, k and v
 apart: per-output-channel scales give the fused weight's int8 values and
-scales), and the rematerialization policies other than full per-block
-recompute.
+scales).
 
 Training runs autograd through :func:`encoder_apply` and the teacher-forced
 :func:`decoder_apply`; the decode paths (the cached decoder, :func:`init_cache`,
@@ -72,7 +71,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..ops import decode_attn, decode_mlp
 from ..ops.attention import (
@@ -444,25 +443,62 @@ def _gated_x_attn_cached(
 # Encoder
 # ---------------------------------------------------------------------------
 
+# The argument-free ``jax.checkpoint_policies`` names as the aten products
+# each one saves (``None``: save everything, no checkpoint; an empty tuple:
+# save nothing, full per-block recompute). The projections fold to 2-D
+# ``mm`` / ``addmm``, dot_generals with no batch dims in JAX; the attention
+# products are batched ``bmm`` / ``baddbmm``.
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_ALL_DOTS = _NO_BATCH_DOTS + (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+REMAT_POLICIES = {
+    "dots": _NO_BATCH_DOTS,
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS,
+    "checkpoint_dots_with_no_batch_dims": _NO_BATCH_DOTS,
+    "dots_saveable": _ALL_DOTS,
+    "checkpoint_dots": _ALL_DOTS,
+    "nothing_saveable": (),
+    "everything_saveable": None,
+}
+
+
 def _remat_wrap(fn, remat):
     """The rematerialization spec of JAX's ``_remat_wrap`` for one block:
     ``False``/``"none"`` keeps every activation; ``True``/``"full"``
     recomputes the block in the backward (``checkpoint``, non-reentrant,
-    only while grad is enabled). The numbers are the same either way. The
-    ``jax.checkpoint_policies`` names (``"dots"`` and others) are not
-    ported."""
+    only while grad is enabled); a name of :data:`REMAT_POLICIES` (an
+    argument-free ``jax.checkpoint_policies`` name, ``"dots"`` for
+    ``dots_with_no_batch_dims_saveable``) keeps the outputs of the products
+    it names through ``torch.utils.checkpoint``'s selective checkpoint and
+    recomputes the rest. The flash64 forward is no product, so it is
+    recomputed, as JAX recomputes its ``pallas_call``: its output buffer
+    comes from ``torch.empty``, which no policy saves, so the rerun writes
+    into a new buffer. The numbers are the same under every spec. Unknown
+    names, and the policies that take arguments, raise ``ValueError``."""
     if not remat or remat == "none":
         return fn
     if remat is True or remat == "full":
-        def recomputed(*args):
-            if not torch.is_grad_enabled():
-                return fn(*args)
-            return checkpoint(fn, *args, use_reentrant=False)
+        saved = ()
+    elif isinstance(remat, str) and remat in REMAT_POLICIES:
+        saved = REMAT_POLICIES[remat]
+        if saved is None:
+            return fn
+    else:
+        # fail at config time with the accepted values (a YAML ``remat=false``
+        # arrives as the *string* "false")
+        raise ValueError(
+            f"unknown remat spec {remat!r}: expected False/'none', "
+            "True/'full', 'dots', or a jax.checkpoint_policies name"
+        )
+    kwargs = {"use_reentrant": False}
+    if saved:
+        kwargs["context_fn"] = lambda: create_selective_checkpoint_contexts(list(saved))
 
-        return recomputed
-    raise NotImplementedError(
-        f"remat spec {remat!r} is not ported: expected False/'none' or True/'full'"
-    )
+    def recomputed(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, **kwargs)
+
+    return recomputed
 
 
 def encoder_apply(

@@ -7,7 +7,8 @@ comes from the config's ``dataset`` key:
 - ``synthetic``: deterministic random utterances (smoke runs, tests);
 - ``manifest:<path>``: a TSV/CSV manifest of wav paths and text (the path
   may hold ``{split}``);
-- ``hf:<name>[:<config>]``: HuggingFace datasets, not ported yet (raises).
+- ``hf:<name>[:<config>]``: HuggingFace datasets (``HFAsrSource``; a
+  local cache, as nothing is fetched).
 
 The model and the text conditioner (:func:`build_conditioner`, BERT over
 the translation strings, run by the trainer's ``prepare_batch`` hook) are

@@ -8,7 +8,8 @@ PyTorch-Lightning layer as a plain loop around the train step):
   per split over normalized text;
 - top-k checkpoints on a monitored metric plus ``last`` for resume, as
   ``torch.save`` files holding the parameters, the optimizer state (Adam
-  moments, accumulation buffer), the schedule count, the step and the
+  moments or Adafactor's factored statistics, the accumulation buffer),
+  the schedule count, the step and the
   torch RNG states; a resumed run continues bit-identically;
 - metrics to JSONL.
 
