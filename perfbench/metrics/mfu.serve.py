@@ -1,0 +1,11 @@
+"""The operations of the requests the window finished (encoder, static K/V, prefill and each served token at its position) (``perfbench.flops``)
+over the window's length times the bf16 dense peak, in %."""
+
+from perfbench import roofline
+
+
+def read(r):
+    flops, window = r.stats.get("flops"), r.stats.get("window_s")
+    if not flops or not window:
+        return None
+    return 100.0 * flops / (window * roofline.BF16_PEAK_FLOPS)

@@ -1,0 +1,6 @@
+"""Mean host time (ms) from one incremental ``decoder_apply`` call of the
+decode loop to the next: one step of the loop, bookkeeping included."""
+
+
+def read(r):
+    return r.mean_host_ms("step.decode")
