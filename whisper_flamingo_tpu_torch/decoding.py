@@ -48,6 +48,7 @@ from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import profiling
 from .audio import CHUNK_LENGTH
 from .models.whisper import decoder_apply, encoder_apply, init_cache, prepare_decode_params
 from .tokenizer import Tokenizer, get_tokenizer
@@ -420,87 +421,94 @@ class DecodingTask:
 
         cur_len = init_len
         while cur_len < max_len:
-            logits = _apply_filters(self.filter_cfg, last_logits, tokens, cur_len)
-            if use_beam:
-                K = G + 1
-                N = G * K
-                logprobs = torch.log_softmax(logits, dim=-1)
-                top_vals, top_idx = torch.topk(logprobs, K, dim=-1)
-                cand_scores = (sum_logprobs[:, None] + top_vals).reshape(n_audio, N)
-                cand_tokens = top_idx.reshape(n_audio, N)
-                sort_idx = torch.argsort(-cand_scores, dim=1, stable=True)
-                s_scores = cand_scores.gather(1, sort_idx)
-                s_tokens = cand_tokens.gather(1, sort_idx)
-                s_is_eot = s_tokens == eot
-                nonterm = (~s_is_eot).long()
-                nonterm_rank = nonterm.cumsum(dim=1) - nonterm  # exclusive
-                iota = torch.arange(N, device=dev)[None]
+            with profiling.span("decode.step"):
+                logits = _apply_filters(self.filter_cfg, last_logits, tokens, cur_len)
+                if use_beam:
+                    K = G + 1
+                    N = G * K
+                    logprobs = torch.log_softmax(logits, dim=-1)
+                    top_vals, top_idx = torch.topk(logprobs, K, dim=-1)
+                    cand_scores = (sum_logprobs[:, None] + top_vals).reshape(n_audio, N)
+                    cand_tokens = top_idx.reshape(n_audio, N)
+                    sort_idx = torch.argsort(-cand_scores, dim=1, stable=True)
+                    s_scores = cand_scores.gather(1, sort_idx)
+                    s_tokens = cand_tokens.gather(1, sort_idx)
+                    s_is_eot = s_tokens == eot
+                    nonterm = (~s_is_eot).long()
+                    nonterm_rank = nonterm.cumsum(dim=1) - nonterm  # exclusive
+                    iota = torch.arange(N, device=dev)[None]
 
-                # the G best unfinished continuations
-                order_key = torch.where(s_is_eot, N + iota, nonterm_rank)
-                beam_pos = torch.argsort(order_key, dim=1, stable=True)[:, :G]
-                sel_flat = sort_idx.gather(1, beam_pos)
-                sel_scores = s_scores.gather(1, beam_pos)
-                sel_token = s_tokens.gather(1, beam_pos)
-                src_global = (
-                    torch.arange(n_audio, device=dev)[:, None] * G + sel_flat // K
-                ).reshape(-1)
+                    # the G best unfinished continuations
+                    order_key = torch.where(s_is_eot, N + iota, nonterm_rank)
+                    beam_pos = torch.argsort(order_key, dim=1, stable=True)[:, :G]
+                    sel_flat = sort_idx.gather(1, beam_pos)
+                    sel_scores = s_scores.gather(1, beam_pos)
+                    sel_token = s_tokens.gather(1, beam_pos)
+                    src_global = (
+                        torch.arange(n_audio, device=dev)[:, None] * G + sel_flat // K
+                    ).reshape(-1)
 
-                # newly finished sequences -> the fixed-capacity buffer
-                eligible = s_is_eot & (nonterm_rank < G)
-                elig = eligible.long()
-                elig_rank = elig.cumsum(dim=1) - elig
-                n_elig = elig.sum(dim=1)
-                elig_key = torch.where(eligible, elig_rank, N + iota)
-                elig_pos = torch.argsort(elig_key, dim=1, stable=True)
-                elig_flat = sort_idx.gather(1, elig_pos)
-                elig_scores = torch.where(
-                    iota < n_elig[:, None], s_scores.gather(1, elig_pos),
-                    torch.full((), NEG_INF, device=dev),
-                )
-                slot = torch.arange(C, device=dev)[None]
-                take_src = slot - fin_count[:, None]
-                valid = (take_src >= 0) & (take_src < n_elig[:, None])
-                take_clip = take_src.clamp(0, N - 1)
-                fin_scores = torch.where(valid, elig_scores.gather(1, take_clip), fin_scores)
-                src_beam_fin = elig_flat.gather(1, take_clip) // K  # (B, C)
-                fin_rows = tokens.reshape(n_audio, G, -1)[
-                    torch.arange(n_audio, device=dev)[:, None], src_beam_fin
-                ]  # (B, C, L), from the tokens before the reorder
-                fin_rows[:, :, cur_len] = eot
-                fin_tokens = torch.where(valid[:, :, None], fin_rows, fin_tokens)
-                fin_count = (fin_count + n_elig).clamp(max=C)
+                    # newly finished sequences -> the fixed-capacity buffer
+                    eligible = s_is_eot & (nonterm_rank < G)
+                    elig = eligible.long()
+                    elig_rank = elig.cumsum(dim=1) - elig
+                    n_elig = elig.sum(dim=1)
+                    elig_key = torch.where(eligible, elig_rank, N + iota)
+                    elig_pos = torch.argsort(elig_key, dim=1, stable=True)
+                    elig_flat = sort_idx.gather(1, elig_pos)
+                    elig_scores = torch.where(
+                        iota < n_elig[:, None], s_scores.gather(1, elig_pos),
+                        torch.full((), NEG_INF, device=dev),
+                    )
+                    slot = torch.arange(C, device=dev)[None]
+                    take_src = slot - fin_count[:, None]
+                    valid = (take_src >= 0) & (take_src < n_elig[:, None])
+                    take_clip = take_src.clamp(0, N - 1)
+                    fin_scores = torch.where(valid, elig_scores.gather(1, take_clip), fin_scores)
+                    src_beam_fin = elig_flat.gather(1, take_clip) // K  # (B, C)
+                    fin_rows = tokens.reshape(n_audio, G, -1)[
+                        torch.arange(n_audio, device=dev)[:, None], src_beam_fin
+                    ]  # (B, C, L), from the tokens before the reorder
+                    fin_rows[:, :, cur_len] = eot
+                    fin_tokens = torch.where(valid[:, :, None], fin_rows, fin_tokens)
+                    fin_count = (fin_count + n_elig).clamp(max=C)
 
-                tokens = tokens.index_select(0, src_global)
-                tokens[:, cur_len] = sel_token.reshape(-1)
-                sum_logprobs = sel_scores.reshape(-1)
-                # the surviving beams' self cache: only the written prefix matters
-                for key in self_keys:
-                    pre = cache[key][:, :, :cur_len]
-                    pre.copy_(pre.index_select(1, src_global))
-                completed = (fin_count >= C).all()
-            else:
-                if gen is None:
-                    next_tokens = logits.argmax(dim=-1)
-                else:  # Gumbel-max sampling with the task's generator
-                    u = torch.rand(logits.shape, generator=gen, device=dev)
-                    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-                    next_tokens = (logits / self.options.temperature + gumbel).argmax(dim=-1)
-                logprobs = torch.log_softmax(logits, dim=-1)
-                current = logprobs.gather(1, next_tokens[:, None])[:, 0]
-                sum_logprobs = sum_logprobs + current * (~finished)
-                next_tokens = torch.where(finished, torch.full_like(next_tokens, eot), next_tokens)
-                tokens[:, cur_len] = next_tokens
-                finished = finished | (next_tokens == eot)
-                completed = finished.all()
-            cur_len += 1
-            if cur_len >= max_len or bool(completed):
-                break  # the last step's logits would go unread
-            new_logits, cache = decoder_apply(
-                params, dims, tokens[:, cur_len - 1: cur_len], cache=cache,
-                offset=cur_len - 1, dtype=dtype, sequential_xt=sequential_xt,
-            )
-            last_logits = new_logits[:, -1].float()
+                    tokens = tokens.index_select(0, src_global)
+                    tokens[:, cur_len] = sel_token.reshape(-1)
+                    sum_logprobs = sel_scores.reshape(-1)
+                    # the surviving beams' self cache: only the written prefix matters
+                    for key in self_keys:
+                        pre = cache[key][:, :, :cur_len]
+                        pre.copy_(pre.index_select(1, src_global))
+                    completed = (fin_count >= C).all()
+                else:
+                    if gen is None:
+                        next_tokens = logits.argmax(dim=-1)
+                    else:  # Gumbel-max sampling with the task's generator
+                        u = torch.rand(logits.shape, generator=gen, device=dev)
+                        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+                        next_tokens = (logits / self.options.temperature + gumbel).argmax(dim=-1)
+                    logprobs = torch.log_softmax(logits, dim=-1)
+                    current = logprobs.gather(1, next_tokens[:, None])[:, 0]
+                    sum_logprobs = sum_logprobs + current * (~finished)
+                    next_tokens = torch.where(finished, torch.full_like(next_tokens, eot),
+                                              next_tokens)
+                    tokens[:, cur_len] = next_tokens
+                    finished = finished | (next_tokens == eot)
+                    completed = finished.all()
+                cur_len += 1
+                if cur_len >= max_len:
+                    break  # the last step's logits would go unread
+                with profiling.span("decode.sync"):
+                    done = bool(completed)
+                if done:
+                    break
+                with profiling.span("decode.forward"):
+                    new_logits, cache = decoder_apply(
+                        params, dims, tokens[:, cur_len - 1: cur_len], cache=cache,
+                        offset=cur_len - 1, dtype=dtype, sequential_xt=sequential_xt,
+                    )
+                last_logits = new_logits[:, -1].float()
 
         out = {
             "tokens": tokens,

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling
 from ..utils import resolve_device
 
 Device = Optional[Union[str, torch.device]]
@@ -327,9 +328,11 @@ class HFBertConditioner(TextConditioner):
 
     @torch.no_grad()
     def encode(self, texts: Sequence[str]) -> torch.Tensor:
-        ids, mask = self.tokenize(texts)
-        return self.model(torch.from_numpy(ids).to(self.device),
-                          torch.from_numpy(mask).to(self.device))
+        with profiling.span("conditioner.tokenize"):
+            ids, mask = self.tokenize(texts)
+        with profiling.span("conditioner.bert"):
+            return self.model(torch.from_numpy(ids).to(self.device),
+                              torch.from_numpy(mask).to(self.device))
 
 
 class PrecomputedConditioner(TextConditioner):

@@ -1,73 +1,165 @@
-"""Profiling and step-timing utilities.
+"""Profiling: spans and counters inside the program, and the trace, FLOP
+and device-time helpers.
 
-Port of ``whisper_flamingo_tpu/profiling.py``:
+Port of ``whisper_flamingo_tpu/profiling.py``, with the span recorder added:
 
-- :class:`StepTimer`: rolling wall-clock and throughput stats for train or
-  decode loops;
+- :func:`collect` installs an in-memory :class:`Spans` sink for the block;
+  while it is installed, :func:`span` records a named interval (with its
+  parent, the innermost span open on the same thread, a request id and the
+  thread), :func:`record` one that crosses calls (a request's wait in a
+  queue), :func:`count` adds to a named counter and :func:`stamp` reads the
+  clock. With no sink installed each of them returns at once after one
+  test of a module global: no clock read, no allocation. Times are
+  ``time.time_ns()``, the clock of ``torch.profiler``'s runtime events, so
+  spans and the profiler's device operations share one timeline. Spans do
+  no device work and never synchronise;
 - :func:`trace`: a ``torch.profiler`` context (CPU and CUDA activities)
   that writes a Chrome trace into a directory;
 - :func:`model_flops`: analytic FLOPs of one Whisper forward (encoder and
   teacher-forced decoder), the JAX package's count;
-- :func:`mfu`: model FLOPs utilization against the H100's dense bf16 peak.
+- :func:`mfu`: model FLOPs utilization against the H100's dense bf16 peak;
+- :func:`device_span_ms`: the device time of one call between CUDA events.
+
+The spans the port opens, and where: ``conditioner.tokenize`` and
+``conditioner.bert`` (``models/bert.HFBertConditioner.encode``);
+``decode.step``, its children ``decode.forward`` and ``decode.sync``
+(``decoding.DecodingTask._main_loop``); ``serve.poll``, ``serve.admit``,
+``serve.step``, per request ``serve.queued`` and ``serve.in_slot``, and the
+counters ``serve.slot_steps`` and ``serve.tokens``
+(``serving.ContinuousBatcher``); ``train.step``, ``train.forward`` and
+``train.backward`` (``training/steps``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional
-
-import numpy as np
+from collections import Counter
+from typing import Iterator, List, NamedTuple, Optional
 
 from .models.dims import ModelDimensions
 
 H100_BF16_PEAK_FLOPS = 989e12  # dense, SXM part at its 700 W limit
 
 
-@dataclass
-class StepTimer:
-    """Rolling step timing; call ``tick(n_tokens=..., n_audio_sec=...)``.
-    The caller synchronizes the device before a tick where it times device
-    work."""
+class SpanRecord(NamedTuple):
+    """One closed span: ``parent`` is the ``id`` of the innermost span open
+    on ``thread`` when it opened (``None`` at the top, and for
+    :func:`record`); times in ns on ``time.time_ns()``."""
 
-    window: int = 100
-    _times: List[float] = field(default_factory=list)
-    _tokens: List[int] = field(default_factory=list)
-    _audio: List[float] = field(default_factory=list)
-    _last: Optional[float] = None
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    rid: Optional[int]
+    thread: int
 
-    def start(self) -> None:
-        self._last = time.perf_counter()
 
-    def tick(self, n_tokens: int = 0, n_audio_sec: float = 0.0) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._times.append(now - self._last)
-            self._tokens.append(n_tokens)
-            self._audio.append(n_audio_sec)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-                self._tokens.pop(0)
-                self._audio.pop(0)
-        self._last = now
+class Spans:
+    """The in-memory sink :func:`collect` installs: the closed spans in the
+    order they closed, and the counters. Spans may close on any thread;
+    counters are added to by the thread that owns the counted object."""
 
-    def stats(self) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        times = np.asarray(self._times)
-        total = float(times.sum())
-        out = {
-            "step_time_mean": float(times.mean()),
-            "step_time_p50": float(np.percentile(times, 50)),
-            "step_time_p99": float(np.percentile(times, 99)),
-        }
-        if sum(self._tokens):
-            out["tokens_per_sec"] = sum(self._tokens) / total
-        if sum(self._audio):
-            out["rtf"] = sum(self._audio) / total
-        return out
+    def __init__(self):
+        self.spans: List[SpanRecord] = []
+        self.counters: Counter = Counter()
+        self._ids = itertools.count()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+
+class _Span:
+    """An open span of an installed sink."""
+
+    __slots__ = ("sink", "name", "rid", "id", "parent", "start_ns")
+
+    def __init__(self, sink: Spans, name: str, rid: Optional[int]):
+        self.sink, self.name, self.rid = sink, name, rid
+
+    def __enter__(self) -> "_Span":
+        stack = self.sink._stack()
+        self.parent = stack[-1] if stack else None
+        self.id = next(self.sink._ids)
+        stack.append(self.id)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.time_ns()
+        self.sink._stack().pop()
+        self.sink.spans.append(SpanRecord(self.id, self.name, self.start_ns, end, self.parent,
+                                          self.rid, threading.get_ident()))
+        return False
+
+
+class _NoSpan:
+    """The one shared no-op span handed out while no sink is installed."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_sink: Optional[Spans] = None
+
+
+@contextlib.contextmanager
+def collect() -> Iterator[Spans]:
+    """Install a fresh :class:`Spans` sink over the block and yield it; the
+    sink installed before (usually none) comes back on the way out."""
+    global _sink
+    prev, _sink = _sink, Spans()
+    try:
+        yield _sink
+    finally:
+        _sink = prev
+
+
+def span(name: str, rid: Optional[int] = None):
+    """A context that records ``name`` around its block while a sink is
+    installed; else the shared no-op context."""
+    sink = _sink
+    if sink is None:
+        return _NO_SPAN
+    return _Span(sink, name, rid)
+
+
+def record(name: str, start_ns: int, end_ns: int, rid: Optional[int] = None) -> None:
+    """Record a span whose ends were stamped apart (:func:`stamp`)."""
+    sink = _sink
+    if sink is None:
+        return
+    sink.spans.append(SpanRecord(next(sink._ids), name, start_ns, end_ns, None, rid,
+                                 threading.get_ident()))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a sink is installed."""
+    sink = _sink
+    if sink is None:
+        return
+    sink.counters[name] += n
+
+
+def stamp() -> Optional[int]:
+    """``time.time_ns()`` while a sink is installed, else ``None``."""
+    if _sink is None:
+        return None
+    return time.time_ns()
 
 
 @contextlib.contextmanager

@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import profiling
 from .audio import N_SAMPLES, load_audio, log_mel_spectrogram, pad_or_trim
 from .decoding import DecodingOptions, DecodingResult, DecodingTask, _apply_filters, _features
 from .models.whisper import decoder_apply, init_cache, prepare_decode_params
@@ -212,6 +213,7 @@ class ContinuousBatcher:
         # one column past the last write: a cap-finished row's no-op write
         # (K+1 EOTs at offset max_len) stays off its last token
         self._buf_w = self._task.max_len + K + 1
+        self._tokens_a_step = K + 1  # the most a step (a round) gives a slot
         self._round = None
         if draft_model is not None:
             from .speculative import make_spec_round
@@ -328,25 +330,26 @@ class ContinuousBatcher:
     def _step(self, s: State) -> None:
         """One greedy token for every slot (a speculative round with a
         draft), in place; finished slots are no-ops."""
-        if self._round is not None:
-            self._round(self._params, self._params_d, s)
-            return
-        task = self._task
-        tokens, n = s["tokens"], s["lens"]
-        active = ~s["finished"]
-        last = tokens.gather(1, (n - 1)[:, None])
-        logits, s["cache_v"] = decoder_apply(self._params, self.model.dims, last,
-                                             cache=s["cache_v"], offset=(n - 1).to(torch.int32),
-                                             dtype=self._dtype)
-        flt = _apply_filters(task.filter_cfg, logits[:, -1].float(), tokens, n)
-        nxt = flt.argmax(dim=-1)
-        lp = torch.log_softmax(flt, dim=-1).gather(1, nxt[:, None])[:, 0]
-        nxt = torch.where(active, nxt, torch.full_like(nxt, task.tokenizer.eot))
-        tokens.scatter_(1, n[:, None], nxt[:, None])
-        lens = n + active.long()
-        s["lens"] = lens
-        s["sum_logprobs"] = s["sum_logprobs"] + torch.where(active, lp, torch.zeros_like(lp))
-        s["finished"] = s["finished"] | (nxt == task.tokenizer.eot) | (lens >= s["caps"])
+        with profiling.span("serve.step"):
+            if self._round is not None:
+                self._round(self._params, self._params_d, s)
+                return
+            task = self._task
+            tokens, n = s["tokens"], s["lens"]
+            active = ~s["finished"]
+            last = tokens.gather(1, (n - 1)[:, None])
+            logits, s["cache_v"] = decoder_apply(
+                self._params, self.model.dims, last, cache=s["cache_v"],
+                offset=(n - 1).to(torch.int32), dtype=self._dtype)
+            flt = _apply_filters(task.filter_cfg, logits[:, -1].float(), tokens, n)
+            nxt = flt.argmax(dim=-1)
+            lp = torch.log_softmax(flt, dim=-1).gather(1, nxt[:, None])[:, 0]
+            nxt = torch.where(active, nxt, torch.full_like(nxt, task.tokenizer.eot))
+            tokens.scatter_(1, n[:, None], nxt[:, None])
+            lens = n + active.long()
+            s["lens"] = lens
+            s["sum_logprobs"] = s["sum_logprobs"] + torch.where(active, lp, torch.zeros_like(lp))
+            s["finished"] = s["finished"] | (nxt == task.tokenizer.eot) | (lens >= s["caps"])
 
     def _advance(self, s: State, iters: int, stop_on_finish: bool) -> None:
         """Up to ``iters`` steps; ends once no slot is live, or (with
@@ -356,6 +359,7 @@ class ContinuousBatcher:
         ring = _FlagRing(2, self.device)
         for i in range(iters):
             self._step(s)
+            profiling.count("serve.slot_steps", self.slots * self._tokens_a_step)
             fin = s["finished"]
             ring.push(i, torch.stack([(~fin).any(), (fin & ~entry).any()]))
             if i > 0:
@@ -374,6 +378,9 @@ class ContinuousBatcher:
             self._next_id = 0
             self._poll_n = 0
             self._pending_aux = None  # (poll_n, aux) when pipelined
+            # request id -> stamp (ns), kept only while a span sink is installed
+            self._submitted: Dict[int, int] = {}
+            self._admitted: Dict[int, int] = {}
 
     def submit(self, wave, max_tokens: Optional[int] = None) -> int:
         """Enqueue one request; returns its id. Takes a <= 30 s waveform
@@ -382,6 +389,9 @@ class ContinuousBatcher:
         rid = self._next_id
         self._next_id += 1
         self._queue.append((rid, wave, max_tokens))
+        t = profiling.stamp()
+        if t is not None:
+            self._submitted[rid] = t
         return rid
 
     @property
@@ -394,12 +404,20 @@ class ContinuousBatcher:
         take = min(len(idle), len(self._queue))
         if not take:
             return
-        reqs = [self._queue.pop(0) for _ in range(take)]
-        rows = self._prefill([(w, mt) for _, w, mt in reqs])
-        self._copy_rows(self._state, idle[:take], rows, range(take))
-        for j, (rid, _, _) in enumerate(reqs):
-            self._slot_req[idle[j]] = rid
-            self._slot_gen[idle[j]] = self._poll_n
+        with profiling.span("serve.admit"):
+            reqs = [self._queue.pop(0) for _ in range(take)]
+            t = profiling.stamp()
+            for rid, _, _ in reqs:
+                submitted = self._submitted.pop(rid, None)
+                if t is not None:
+                    if submitted is not None:
+                        profiling.record("serve.queued", submitted, t, rid=rid)
+                    self._admitted[rid] = t
+            rows = self._prefill([(w, mt) for _, w, mt in reqs])
+            self._copy_rows(self._state, idle[:take], rows, range(take))
+            for j, (rid, _, _) in enumerate(reqs):
+                self._slot_req[idle[j]] = rid
+                self._slot_gen[idle[j]] = self._poll_n
 
     def _snapshot(self):
         """The slots' host-visible state (tokens, length, finished; score,
@@ -430,7 +448,9 @@ class ContinuousBatcher:
             rid = self._slot_req[s]
             if rid < 0 or self._slot_gen[s] > aux_n or not aux_i[s, -1]:
                 continue
-            done.append((rid, self._finalize_row(aux_i[s, :-2], aux_f[s, 0], aux_f[s, 1])))
+            res = self._finalize_row(aux_i[s, :-2], aux_f[s, 0], aux_f[s, 1])
+            profiling.count("serve.tokens", len(res.tokens))
+            done.append((rid, res))
             self._slot_req[s] = -1
         return done
 
@@ -454,13 +474,24 @@ class ContinuousBatcher:
         rows = self._prefill([(np.zeros(16000, np.float32), 1)])
         scratch = self._empty_state(self.slots)
         self._copy_rows(scratch, [0], rows, [0])
-        self._advance(scratch, 1, False)
+        self._step(scratch)
 
     def poll(self) -> List[tuple]:
         """Advance all slots one chunk; returns [(request_id, result)] for
         the requests that finished (possibly none while work is in flight;
         see :attr:`pending`). With ``pipeline`` the harvest lags one chunk:
         poll k runs chunk k and then reads chunk k-1's copied results."""
+        with profiling.span("serve.poll"):
+            done = self._poll()
+        if self._admitted:  # requests admitted while a span sink was installed
+            t = profiling.stamp()
+            for rid, _ in done:
+                admitted = self._admitted.pop(rid, None)
+                if admitted is not None and t is not None:
+                    profiling.record("serve.in_slot", admitted, t, rid=rid)
+        return done
+
+    def _poll(self) -> List[tuple]:
         self._ensure_state()
         self._fill_idle_slots()
         if all(r < 0 for r in self._slot_req):
@@ -494,6 +525,8 @@ class ContinuousBatcher:
         while self._queue:
             take = len(self._queue) if pool_cap is None else min(int(pool_cap), len(self._queue))
             reqs = [self._queue.pop(0) for _ in range(take)]
+            for rid, _, _ in reqs:
+                self._submitted.pop(rid, None)
             if sort_admission:
                 full = self._task.max_len  # no budget: the full budget
                 reqs.sort(key=lambda r: full if r[2] is None else int(r[2]), reverse=True)

@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from ..models.avhubert import avhubert_encoder_apply
 from ..models.dims import ModelDimensions
 from ..models.whisper import Whisper, decoder_apply, encoder_apply
@@ -156,7 +157,8 @@ def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Te
 
 def _apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
     if loss.requires_grad:  # else nothing trains (JAX's all-zero updates)
-        loss.backward()
+        with profiling.span("train.backward"):
+            loss.backward()
     state.optimizer.step()
     state.step += 1
     return state
@@ -170,18 +172,20 @@ def make_ce_train_step(
     conditioning streams ``xt`` to the gated x-attn."""
 
     def step(state: TrainState, batch: Dict[str, Any]):
-        model = state.model
-        mesh = _mesh(model)
-        b = to_device(batch, model.device)
-        feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
-        if freeze_encoder:
-            feats = feats.detach()
-        logits, _ = decoder_apply(
-            model, dims, b["dec_input_ids"], feats, xt=b.get("xt") if use_xt else None,
-            dtype=dtype, remat=remat, gather_logits=False,
-        )
-        loss = ce_loss(logits, b["labels"], mesh, getattr(model.decoder, "tp", None))
-        return _apply_update(state, loss), {"loss": global_mean(loss, mesh)}
+        with profiling.span("train.step"):
+            with profiling.span("train.forward"):
+                model = state.model
+                mesh = _mesh(model)
+                b = to_device(batch, model.device)
+                feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
+                if freeze_encoder:
+                    feats = feats.detach()
+                logits, _ = decoder_apply(
+                    model, dims, b["dec_input_ids"], feats, xt=b.get("xt") if use_xt else None,
+                    dtype=dtype, remat=remat, gather_logits=False,
+                )
+                loss = ce_loss(logits, b["labels"], mesh, getattr(model.decoder, "tp", None))
+            return _apply_update(state, loss), {"loss": global_mean(loss, mesh)}
 
     return step
 
@@ -207,28 +211,32 @@ def make_kd_train_step(
         raise ValueError("KD requires a shared vocabulary")
 
     def step(state: TrainState, teacher: Whisper, batch: Dict[str, Any]):
-        model = state.model
-        mesh = _mesh(model)
-        b = to_device(batch, model.device)
-        with torch.no_grad():
-            teacher_feats = encoder_apply(teacher, teacher_dims, b["input_ids"], dtype=dtype)
-            teacher_logits, _ = decoder_apply(
-                teacher, teacher_dims, b["dec_input_ids"], teacher_feats,
-                xt=b.get("xt") if teacher_uses_xt else None, dtype=dtype,
-            )
-        if share_teacher_features and freeze_student_encoder:
-            feats = teacher_feats
-        else:
-            feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
-            if freeze_student_encoder:
-                feats = feats.detach()
-        logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, dtype=dtype, remat=remat)
-        ce = ce_loss(logits, b["labels"], mesh)
-        kd = kd_kl_loss(logits, teacher_logits, b["labels"], temperature, mesh)
-        loss = alpha * ce + beta * kd
-        state = _apply_update(state, loss)
-        return state, {"loss": global_mean(loss, mesh), "ce": global_mean(ce, mesh),
-                       "kd": global_mean(kd, mesh)}
+        with profiling.span("train.step"):
+            with profiling.span("train.forward"):
+                model = state.model
+                mesh = _mesh(model)
+                b = to_device(batch, model.device)
+                with torch.no_grad():
+                    teacher_feats = encoder_apply(teacher, teacher_dims, b["input_ids"],
+                                                  dtype=dtype)
+                    teacher_logits, _ = decoder_apply(
+                        teacher, teacher_dims, b["dec_input_ids"], teacher_feats,
+                        xt=b.get("xt") if teacher_uses_xt else None, dtype=dtype,
+                    )
+                if share_teacher_features and freeze_student_encoder:
+                    feats = teacher_feats
+                else:
+                    feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
+                    if freeze_student_encoder:
+                        feats = feats.detach()
+                logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, dtype=dtype,
+                                          remat=remat)
+                ce = ce_loss(logits, b["labels"], mesh)
+                kd = kd_kl_loss(logits, teacher_logits, b["labels"], temperature, mesh)
+                loss = alpha * ce + beta * kd
+            state = _apply_update(state, loss)
+            return state, {"loss": global_mean(loss, mesh), "ce": global_mean(ce, mesh),
+                           "kd": global_mean(kd, mesh)}
 
     return step
 
@@ -252,35 +260,38 @@ def make_prompt_kd_train_step(
     non-pad labels, laid out alike by the collator's asymmetric padding)."""
 
     def step(state: TrainState, teacher: Whisper, batch: Dict[str, Any]):
-        model = state.model
-        mesh = _mesh(model)
-        b = to_device(batch, model.device)
-        with torch.no_grad():
-            feats_t = encoder_apply(teacher, dims, b["input_ids"], dtype=dtype)
-            teacher_logits, _ = decoder_apply(
-                teacher, dims, b["teacher_dec_input_ids"], feats_t, dtype=dtype
-            )
-            t_valid = b["teacher_labels"] != LABEL_PAD
-            s_valid = b["labels"] != LABEL_PAD
-            # valid positions first, in order (a stable sort of ~valid)
-            t_idx = torch.sort((~t_valid).to(torch.uint8), dim=1, stable=True).indices
-            s_idx = torch.sort((~s_valid).to(torch.uint8), dim=1, stable=True).indices
-            ts = b["labels"].shape[1]
-            gathered = torch.gather(
-                teacher_logits, 1,
-                t_idx[:, :ts, None].expand(-1, -1, teacher_logits.shape[-1]),
-            )
-            aligned = _scatter_rows(torch.zeros_like(gathered), s_idx[:, :ts], gathered)
-        feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
-        if freeze_student_encoder:
-            feats = feats.detach()
-        logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, dtype=dtype, remat=remat)
-        ce = ce_loss(logits, b["labels"], mesh)
-        kd = kd_kl_loss(logits, aligned, b["labels"], temperature, mesh)
-        loss = alpha * ce + beta * kd
-        state = _apply_update(state, loss)
-        return state, {"loss": global_mean(loss, mesh), "ce": global_mean(ce, mesh),
-                       "kd": global_mean(kd, mesh)}
+        with profiling.span("train.step"):
+            with profiling.span("train.forward"):
+                model = state.model
+                mesh = _mesh(model)
+                b = to_device(batch, model.device)
+                with torch.no_grad():
+                    feats_t = encoder_apply(teacher, dims, b["input_ids"], dtype=dtype)
+                    teacher_logits, _ = decoder_apply(
+                        teacher, dims, b["teacher_dec_input_ids"], feats_t, dtype=dtype
+                    )
+                    t_valid = b["teacher_labels"] != LABEL_PAD
+                    s_valid = b["labels"] != LABEL_PAD
+                    # valid positions first, in order (a stable sort of ~valid)
+                    t_idx = torch.sort((~t_valid).to(torch.uint8), dim=1, stable=True).indices
+                    s_idx = torch.sort((~s_valid).to(torch.uint8), dim=1, stable=True).indices
+                    ts = b["labels"].shape[1]
+                    gathered = torch.gather(
+                        teacher_logits, 1,
+                        t_idx[:, :ts, None].expand(-1, -1, teacher_logits.shape[-1]),
+                    )
+                    aligned = _scatter_rows(torch.zeros_like(gathered), s_idx[:, :ts], gathered)
+                feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat)
+                if freeze_student_encoder:
+                    feats = feats.detach()
+                logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, dtype=dtype,
+                                          remat=remat)
+                ce = ce_loss(logits, b["labels"], mesh)
+                kd = kd_kl_loss(logits, aligned, b["labels"], temperature, mesh)
+                loss = alpha * ce + beta * kd
+            state = _apply_update(state, loss)
+            return state, {"loss": global_mean(loss, mesh), "ce": global_mean(ce, mesh),
+                           "kd": global_mean(kd, mesh)}
 
     return step
 
@@ -325,24 +336,27 @@ def make_av_train_step(
     an audio trunk feeds both streams to it (``--modalities avsr``)."""
 
     def step(state: TrainState, video, batch: Dict[str, Any], generator: torch.Generator):
-        u = float(torch.rand((), generator=generator))
-        drop_video = prob_av <= u < prob_av + prob_a
-        drop_audio = u >= prob_av + prob_a
-        model = state.model
-        b = to_device(batch, model.device)
-        vfeats = _apply_av_encoder(video, b, dtype)
-        if freeze_video:
-            vfeats = vfeats.detach()
-        if drop_video:
-            vfeats = torch.zeros_like(vfeats)
-        feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype, remat=remat).detach()
-        if drop_audio:
-            feats = torch.zeros_like(feats)
-        logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, xt=vfeats[None],
-                                  dtype=dtype, remat=remat, gather_logits=False)
-        mesh = _mesh(model)
-        loss = ce_loss(logits, b["labels"], mesh, getattr(model.decoder, "tp", None))
-        return _apply_update(state, loss), {"loss": global_mean(loss, mesh)}
+        with profiling.span("train.step"):
+            with profiling.span("train.forward"):
+                u = float(torch.rand((), generator=generator))
+                drop_video = prob_av <= u < prob_av + prob_a
+                drop_audio = u >= prob_av + prob_a
+                model = state.model
+                b = to_device(batch, model.device)
+                vfeats = _apply_av_encoder(video, b, dtype)
+                if freeze_video:
+                    vfeats = vfeats.detach()
+                if drop_video:
+                    vfeats = torch.zeros_like(vfeats)
+                feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype,
+                                      remat=remat).detach()
+                if drop_audio:
+                    feats = torch.zeros_like(feats)
+                logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, xt=vfeats[None],
+                                          dtype=dtype, remat=remat, gather_logits=False)
+                mesh = _mesh(model)
+                loss = ce_loss(logits, b["labels"], mesh, getattr(model.decoder, "tp", None))
+            return _apply_update(state, loss), {"loss": global_mean(loss, mesh)}
 
     return step
 
