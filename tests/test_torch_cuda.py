@@ -576,6 +576,137 @@ def test_debug_int8_decode_kernel_tokens_equal_plain(gen, monkeypatch):
     assert [g.tokens for g in got] == [r.tokens for r in ref]
 
 
+def _decode_loop(task, mel, xt):
+    from whisper_flamingo_tpu_torch import decoding
+
+    feats = decoding._features(task.model, mel, task.compute_dtype)
+    init = torch.tensor([task.initial_tokens] * mel.shape[0], device="cuda")
+    return task._main_loop(feats, init, xt)
+
+
+def _launches_per_forward(task, mel, xt):
+    """The launches (runtime calls that put an operation on the card; a
+    graph replay counts once) of each incremental forward of one profiled
+    decode, and the operations the profiler saw launched by
+    ``cudaGraphLaunch``."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_flamingo_tpu_torch import decoding
+
+    ranges = []
+    apply = decoding.decoder_apply
+
+    def timed(params, dims, tokens, *args, **kwargs):
+        t0 = time.time_ns()
+        out = apply(params, dims, tokens, *args, **kwargs)
+        if kwargs.get("cache") is not None and tokens.shape[-1] == 1:
+            ranges.append((t0, time.time_ns()))
+        return out
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decoding.decoder_apply = timed
+        try:
+            _decode_loop(task, mel, xt)
+        finally:
+            decoding.decoder_apply = apply
+        torch.cuda.synchronize()
+    raw = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e.correlation_id() for e in raw if e.device_type() == cuda]
+    with_ops = set(ops)
+    calls = {}
+    for e in raw:
+        if e.device_type() != cuda and e.correlation_id() in with_ops:
+            calls.setdefault(e.correlation_id(), (e.start_ns(), e.name()))
+    per_forward = [sum(a <= t <= b for t, _ in calls.values()) for a, b in ranges]
+    graph_ops = sum(calls.get(c, (0, ""))[1] == "cudaGraphLaunch" for c in ops)
+    return per_forward, graph_ops
+
+
+def _graphs_against_eager(model, mel, xt, opts):
+    """The task's step graphs against the unsegmented step (a task with no
+    holder): loop outputs bit-equal, one capture, every forward after the
+    warm-up replayed; returns the launches of each forward of a decode at
+    the captured key (the first copies the batch's slabs in)."""
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch import profiling
+    from whisper_flamingo_tpu_torch.models.whisper import StepGraphs
+
+    eager = wt.DecodingTask(model, opts)
+    eager.step_graphs = None
+    want = _decode_loop(eager, mel, xt)
+    task = wt.DecodingTask(model, opts)
+    with profiling.collect() as sink:
+        got = _decode_loop(task, mel, xt)
+    forwards = sum(s.name == "decode.forward" for s in sink.spans)
+    assert forwards > StepGraphs.WARMUP
+    assert sink.counters["decode.graph_captures"] == 1
+    assert sink.counters["decode.graph_steps"] == forwards - StepGraphs.WARMUP
+    assert sink.counters["decode.eager_steps"] == StepGraphs.WARMUP
+    again = _decode_loop(task, mel, xt)  # the key's graphs, the slabs refilled
+    for out in (got, again):
+        for key in ("tokens", "sum_logprobs", "fin_scores"):
+            if key in want:
+                diff = (out[key].double() - want[key].double()).abs().nan_to_num(0.0).max()
+                assert torch.equal(out[key], want[key]), (key, float(diff))
+    per_forward, graph_ops = _launches_per_forward(task, mel, xt)
+    assert len(task.step_graphs._built) == 1
+    return per_forward, graph_ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("beam", [None, 3])
+def test_debug_step_graphs_equal_eager(gen, dtype, beam):
+    """Greedy and beam at debug widths with d_head 64: the replayed step
+    gives the unsegmented step's tokens and scores bit for bit, in 2 + 3
+    launches a layer + 1 a forward."""
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.models.dims import ModelDimensions
+
+    dims = ModelDimensions(
+        n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+        n_vocab=51865, n_text_ctx=448, n_text_head=2, n_text_state=128, n_text_layer=2,
+    )
+    model = wt.init_params(torch.Generator(device="cuda").manual_seed(1), dims, device="cuda")
+    mel = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, 80, 3000)).astype(np.float32) * 0.5
+    ).cuda()
+    opts = wt.DecodingOptions(language="en", fp16=dtype == torch.bfloat16, sample_len=12,
+                              beam_size=beam)
+    per_forward, graph_ops = _graphs_against_eager(model, mel, None, opts)
+    launches = 3 + 3 * dims.n_text_layer
+    assert per_forward == [launches + 2] + [launches] * (len(per_forward) - 1), per_forward
+    assert graph_ops > 0
+
+
+def test_small_gated_beam15_step_graphs_equal_eager(gen):
+    """The beam cell's path at its widths: Whisper ``small`` with one gated
+    text stream at mBERT's width (gates at 1), bf16, beam 15 on b8: the
+    replayed step gives the unsegmented step's tokens, ``sum_logprobs`` and
+    ``fin_scores`` bit for bit, in at most 45 launches a forward."""
+    import whisper_flamingo_tpu_torch as wt
+    from whisper_flamingo_tpu_torch.models.dims import MODEL_DIMS
+
+    dims = MODEL_DIMS["small"]
+    extras = wt.ModelExtras(add_gated_x_attn=1, num_langs=1, bert_dim=768)
+    model = wt.init_params(torch.Generator(device="cuda").manual_seed(2), dims, extras,
+                           device="cuda")
+    with torch.no_grad():
+        for blk in model.decoder.blocks:
+            blk.ff_gate.fill_(1.0)
+            blk.gated_x_attn_layers[0].attn_gate.fill_(1.0)
+    rng = np.random.default_rng(1)
+    mel = torch.from_numpy(rng.standard_normal((8, 80, 3000)).astype(np.float32) * 0.5).cuda()
+    xt = torch.from_numpy(rng.standard_normal((1, 8, 128, 768)).astype(np.float32)).cuda()
+    opts = wt.DecodingOptions(language="en", without_timestamps=True, beam_size=15,
+                              sample_len=24)
+    per_forward, graph_ops = _graphs_against_eager(model, mel, xt, opts)
+    assert max(per_forward) <= 45, per_forward
+    assert graph_ops > 0
+
+
 # the probe kernels: bf16 outputs within one ulp of their scale (2^-7 of the
 # largest magnitude; fp32 sums in another order can flip a bf16 rounding)
 PROBE_REL = 2.0 ** -7

@@ -180,6 +180,10 @@ def test_decode_bit_equal_and_its_spans(model, kw, monkeypatch):
     sync = {k.parent: k for k in _named(sink, "decode.sync")}
     for f in _named(sink, "decode.forward"):
         assert sync[f.parent].end_ns <= f.start_ns
+    # on the CPU the step-graph holder leaves every forward to the eager step
+    assert sink.counters["decode.eager_steps"] == len(_named(sink, "decode.forward"))
+    assert sink.counters["decode.graph_steps"] == sink.counters["decode.graph_captures"] == 0
+    assert not _named(sink, "decode.capture")
 
 
 # -- the continuous batcher ---------------------------------------------------------------

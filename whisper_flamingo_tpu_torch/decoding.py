@@ -13,7 +13,10 @@ reads one flag back from the device (has every row finished?), so the loop
 stops where the JAX loop stops; the bookkeeping stays on the device. The
 beam's self-cache reorder (with the int8kv scales) is an ``index_select``
 over the written prefix. The incremental steps run the decode-attention
-kernel (not under int8kv, as in JAX), the encoder the flash64 kernel.
+kernel (not under int8kv, as in JAX), the encoder the flash64 kernel. On
+the card the incremental step replays CUDA graphs between the
+decode-attention launches (``models.whisper.StepGraphs``, one holder a
+task, captured per shape after two eager steps).
 
 ``quantize="int8"`` decodes with int8 weights and int8 static slabs
 (``models.whisper.quantize_decode_params``, ``init_cache(quantize=True)``);
@@ -50,7 +53,13 @@ import torch
 
 from . import profiling
 from .audio import CHUNK_LENGTH
-from .models.whisper import decoder_apply, encoder_apply, init_cache, prepare_decode_params
+from .models.whisper import (
+    StepGraphs,
+    decoder_apply,
+    encoder_apply,
+    init_cache,
+    prepare_decode_params,
+)
 from .tokenizer import Tokenizer, get_tokenizer
 from .utils import compression_ratio
 
@@ -304,6 +313,7 @@ class DecodingTask:
         self.compute_dtype = torch.bfloat16 if options.fp16 else torch.float32
         self.device = model.device
         self._params = None
+        self.step_graphs = StepGraphs()
 
     def _verify_options(self, options: DecodingOptions) -> DecodingOptions:
         if options.beam_size is not None and options.best_of is not None:
@@ -507,6 +517,7 @@ class DecodingTask:
                     new_logits, cache = decoder_apply(
                         params, dims, tokens[:, cur_len - 1: cur_len], cache=cache,
                         offset=cur_len - 1, dtype=dtype, sequential_xt=sequential_xt,
+                        step_graphs=self.step_graphs,
                     )
                 last_logits = new_logits[:, -1].float()
 

@@ -26,6 +26,8 @@ that tree and tensors, with the JAX package's names and numerics:
   scales (int8kv);
 - with ``ops.decode_mlp.ENABLED`` the cached decoder's MLP goes through
   the streaming decode-MLP kernel (:func:`..ops.decode_mlp.fused_mlp`);
+- on the card the decode loop's incremental step replays CUDA graphs
+  between the decode-attention launches (:class:`StepGraphs`);
 - tensor parallelism: on a model sliced by
   :func:`..parallel.mesh.shard_params` each split module carries the mesh
   (``module.tp``). The apply functions then take the local head count and
@@ -73,6 +75,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from .. import profiling
 from ..ops import decode_attn, decode_mlp
 from ..ops.attention import (
     cached_causal_mask,
@@ -655,7 +658,7 @@ def decoder_apply(
     xt: Optional[torch.Tensor] = None, cache: Optional[Cache] = None,
     offset: Union[int, torch.Tensor] = 0, dtype: torch.dtype = torch.float32,
     sequential_xt: bool = False, return_cross_qk: bool = False, remat=False,
-    gather_logits: bool = True,
+    gather_logits: bool = True, step_graphs: Optional["StepGraphs"] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """tokens (B, T) [+ audio features (B, Ta, D)] -> (fp32 logits (B, T, V), cache).
 
@@ -683,14 +686,22 @@ def decoder_apply(
     The teacher-forced path is differentiable (``remat`` as in
     :func:`_remat_wrap`); the cache path runs without autograd. Under a
     vocabulary split the logits are gathered unless ``gather_logits`` is
-    false, which leaves this rank's (B, T, V / n_model) block."""
+    false, which leaves this rank's (B, T, V / n_model) block.
+
+    ``step_graphs`` (the decode loop's :class:`StepGraphs`) takes the
+    incremental steps it applies to; their logits are its static tensor,
+    valid until its next replay."""
     if cache is not None and torch.is_grad_enabled():
         with torch.no_grad():
             return decoder_apply(
                 params, dims, tokens, audio_features, xt=xt, cache=cache, offset=offset,
                 dtype=dtype, sequential_xt=sequential_xt, return_cross_qk=return_cross_qk,
-                gather_logits=gather_logits,
+                gather_logits=gather_logits, step_graphs=step_graphs,
             )
+    if step_graphs is not None and cache is not None:
+        logits = step_graphs.step(params, dims, tokens, cache, offset, dtype, sequential_xt)
+        if logits is not None:
+            return logits, cache
     dec = params.decoder
     n_head = dims.n_text_head
     T = tokens.shape[-1]
@@ -701,8 +712,7 @@ def decoder_apply(
         pos = pe[offset.long()[:, None] + torch.arange(T, device=dev)[None]]
     else:
         pos = pe[int(offset): int(offset) + T]
-    vocab_tp = _tp(dec)
-    x = (vocab_embedding(dec.token_embedding.weight, tokens, vocab_tp) + pos).to(dtype)
+    x = _embed(dec, tokens, pos, dtype)
 
     use_gated = dec.blocks[0].gated
     if return_cross_qk and cache is not None:
@@ -743,24 +753,10 @@ def decoder_apply(
         mask = None if use_kernel else cached_causal_mask(
             T, cache["k"].shape[-2], offset, device=dev
         )
-
-        def layer(key: str, l: int) -> Optional[torch.Tensor]:
-            return cache[key][l] if key in cache else None
-
         n_self = local_heads(dec.blocks[0].attn, n_head)
         for l, blk in enumerate(dec.blocks):
-            if have_xt_kv:
-                x = _gated_x_attn_cached(
-                    blk, x, cache["xt_k"][l], cache["xt_v"][l], n_head, sequential=sequential_xt,
-                    k_scale=layer("xt_k_s", l), v_scale=layer("xt_v_s", l),
-                )
-            elif use_gated:
-                x = _gated_ff_only(blk, x)
-            ap = blk.attn
-            x_ln = copy_to_tp(layer_norm(blk.attn_ln, x), _tp(ap))
-            q = linear(ap.query, x_ln)
-            k_raw = linear(ap.key, x_ln)
-            v_raw = linear(ap.value, x_ln)
+            x, q, k_raw, v_raw = _step_in(blk, x, cache, l, n_head, use_gated, have_xt_kv,
+                                          sequential_xt)
             k_l, v_l = cache["k"][l], cache["v"][l]
             if use_kernel:
                 attn = decode_attn.fused_step(q, k_raw, v_raw, k_l, v_l, offset, n_self)[0]
@@ -776,17 +772,58 @@ def decoder_apply(
                 update_cache(k_l, k_raw * scale, offset)
                 update_cache(v_l, v_raw, offset)
                 attn = cached_qkv_attention(q, k_l, v_l, n_self, mask=mask)
-            x = x + row_linear(ap.out, attn, _tp(ap))
-            x = x + attention_block(
-                blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head,
-                k_override=cache["xa_k"][l], v_override=cache["xa_v"][l],
-                k_scale=layer("xa_k_s", l), v_scale=layer("xa_v_s", l),
-            )
-            if decode_mlp.ENABLED:
-                x = x + decode_mlp.fused_mlp(blk.mlp, layer_norm(blk.mlp_ln, x))
-            else:
-                x = x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+            x = _step_out(blk, x, attn, cache, l, n_head)
+    return _logits(params, x, gather_logits), cache
 
+
+def _embed(dec: TextDecoder, tokens: torch.Tensor, pos: torch.Tensor, dtype) -> torch.Tensor:
+    """Token embedding plus position rows, in the compute dtype."""
+    return (vocab_embedding(dec.token_embedding.weight, tokens, _tp(dec)) + pos).to(dtype)
+
+
+def _slab(cache: Cache, key: str, l: int) -> Optional[torch.Tensor]:
+    return cache[key][l] if key in cache else None
+
+
+def _step_in(blk: ResidualAttentionBlock, x: torch.Tensor, cache: Cache, l: int, n_head: int,
+             use_gated: bool, have_xt_kv: bool, sequential_xt: bool):
+    """The cached layer ``l`` up to its self-attention: the gated block over
+    the cached streams (a gated model without them: its FFN alone),
+    ``attn_ln`` and the projections. Returns ``(x, q, k_raw, v_raw)``."""
+    if have_xt_kv:
+        x = _gated_x_attn_cached(
+            blk, x, cache["xt_k"][l], cache["xt_v"][l], n_head, sequential=sequential_xt,
+            k_scale=_slab(cache, "xt_k_s", l), v_scale=_slab(cache, "xt_v_s", l),
+        )
+    elif use_gated:
+        x = _gated_ff_only(blk, x)
+    ap = blk.attn
+    x_ln = copy_to_tp(layer_norm(blk.attn_ln, x), _tp(ap))
+    return x, linear(ap.query, x_ln), linear(ap.key, x_ln), linear(ap.value, x_ln)
+
+
+def _step_out(blk: ResidualAttentionBlock, x: torch.Tensor, attn: torch.Tensor, cache: Cache,
+              l: int, n_head: int) -> torch.Tensor:
+    """The cached layer ``l`` after its self-attention ``attn``: the out
+    projection, the cross-attention over the cached audio slabs, the MLP."""
+    ap = blk.attn
+    x = x + row_linear(ap.out, attn, _tp(ap))
+    x = x + attention_block(
+        blk.cross_attn, layer_norm(blk.cross_attn_ln, x), n_head,
+        k_override=cache["xa_k"][l], v_override=cache["xa_v"][l],
+        k_scale=_slab(cache, "xa_k_s", l), v_scale=_slab(cache, "xa_v_s", l),
+    )
+    if decode_mlp.ENABLED:
+        return x + decode_mlp.fused_mlp(blk.mlp, layer_norm(blk.mlp_ln, x))
+    return x + mlp_block(blk.mlp, layer_norm(blk.mlp_ln, x))
+
+
+def _logits(params: Whisper, x: torch.Tensor, gather_logits: bool) -> torch.Tensor:
+    """The final LN and the tied-embedding fp32 logits (an int8 lm head
+    scaled per vocabulary row), gathered over a vocabulary split unless
+    ``gather_logits`` is false."""
+    dec = params.decoder
+    vocab_tp = _tp(dec)
     x = copy_to_tp(layer_norm(dec.ln, x), vocab_tp)
     logits = torch.matmul(x.float(), lm_head_weight(params, x.dtype).t())
     lm_head_s = getattr(dec, "lm_head_s", None)
@@ -794,7 +831,166 @@ def decoder_apply(
         logits = logits * lm_head_s
     if gather_logits:
         logits = gather_from_tp(logits, vocab_tp)
-    return logits, cache
+    return logits
+
+
+# The static slabs the incremental step reads; the self cache k/v is read and
+# written only by the decode-attention kernel
+STATIC_SLABS = ("xa_k", "xa_v", "xa_k_s", "xa_v_s", "xt_k", "xt_v", "xt_k_s", "xt_v_s")
+
+
+class StepGraphs:
+    """The decode loop's one-token cached decoder step, replayed from CUDA
+    graphs: a :class:`..decoding.DecodingTask` owns one and passes it to
+    every incremental :func:`decoder_apply`.
+
+    The step is cut at each layer's decode-attention launch into
+    ``n_text_layer + 1`` segments: segment 0 is the token embedding and
+    position, then layer 0 up to its q/k/v projections (gated
+    cross-attention, ``attn_ln``); segment ``l`` is layer ``l - 1``'s
+    self-attention out projection, cross-attention and MLP, then layer
+    ``l`` up to its projections; the last one ends with the final LN and
+    the fp32 logits. Between two segments
+    :func:`..ops.decode_attn.fused_step` runs eagerly as in the unsegmented
+    step (looked up on its module at call time, the Python-int offset by
+    value, the self caches in place) and its output is copied into the
+    next segment's static input. What changes between steps inside a
+    segment is read from static buffers filled before the replay: the
+    token and the offset (the position row). The static slabs
+    (:data:`STATIC_SLABS`) are the holder's, one set per shape key: a new
+    batch's values are copied in and its cache rebound to them.
+
+    One key is ``(params, rows, dtype, sequential streams, each static
+    slab's shape and dtype)``: rows, audio frames, stream count and length,
+    quantization. Its first :attr:`WARMUP` forwards run the unsegmented
+    step; the next captures the segments (one memory pool a key) under the
+    span ``decode.capture`` and every later forward replays them. The
+    logits a replay returns are the holder's static tensor, overwritten by
+    the next replay.
+
+    It applies to a one-token step at a Python-int offset on CUDA, with no
+    decoder module split by tensor parallelism, no int8kv self cache (its
+    plain write runs at the offset inside the chain) and
+    ``ops.decode_mlp.ENABLED`` off; otherwise :meth:`step` returns
+    ``None`` and the caller runs the unsegmented step. ``capture=False``
+    runs the segments eagerly over the same static buffers, on any device
+    (the CPU tests). Counters: ``decode.graph_steps`` (forwards through the
+    segments), ``decode.eager_steps`` (forwards left to the unsegmented
+    step) and ``decode.graph_captures``."""
+
+    WARMUP = 2
+
+    def __init__(self, capture: bool = True):
+        self.capture = capture
+        self._params: Optional[Whisper] = None
+        self._split = False
+        self._seen: Dict[tuple, int] = {}
+        self._built: Dict[tuple, _StepSegments] = {}
+
+    def _key(self, params: Whisper, tokens: torch.Tensor, cache: Cache, offset,
+             dtype: torch.dtype, sequential_xt: bool) -> Optional[tuple]:
+        if params is not self._params:  # another model: nothing built applies
+            self._params, self._seen, self._built = params, {}, {}
+            self._split = any(_tp(m) is not None for m in params.decoder.modules())
+        if (self._split or (self.capture and not tokens.is_cuda) or tokens.shape[-1] != 1
+                or not isinstance(offset, int) or "k_s" in cache or decode_mlp.ENABLED):
+            return None
+        slabs = tuple((n, tuple(cache[n].shape), cache[n].dtype) for n in STATIC_SLABS
+                      if n in cache)
+        return (tokens.shape[0], dtype, sequential_xt) + slabs
+
+    def step(self, params: Whisper, dims: ModelDimensions, tokens: torch.Tensor, cache: Cache,
+             offset, dtype: torch.dtype, sequential_xt: bool) -> Optional[torch.Tensor]:
+        """The step's fp32 logits (rows, 1, V) from the segments, or ``None``
+        where the caller runs the unsegmented step (a key's warm-up, or a
+        step the holder does not apply to)."""
+        key = self._key(params, tokens, cache, offset, dtype, sequential_xt)
+        built = self._built.get(key)
+        if built is None:
+            seen = self._seen.get(key, 0)
+            if key is None or seen < self.WARMUP:
+                if key is not None:
+                    self._seen[key] = seen + 1
+                profiling.count("decode.eager_steps")
+                return None
+            with profiling.span("decode.capture"):
+                built = self._built[key] = _StepSegments(
+                    params, dims, tokens, cache, dtype, sequential_xt, self.capture)
+            profiling.count("decode.graph_captures")
+        profiling.count("decode.graph_steps")
+        return built.run(tokens, cache, offset)
+
+
+class _StepSegments:
+    """One key's static buffers and segments (captured, or run eagerly)."""
+
+    def __init__(self, params: Whisper, dims: ModelDimensions, tokens: torch.Tensor,
+                 cache: Cache, dtype: torch.dtype, sequential_xt: bool, capture: bool):
+        dec = params.decoder
+        self.params, self.dtype, self.sequential_xt = params, dtype, sequential_xt
+        self.n_head = dims.n_text_head
+        self.n_self = local_heads(dec.blocks[0].attn, self.n_head)
+        self.use_gated = dec.blocks[0].gated
+        self.have_xt_kv = self.use_gated and "xt_k" in cache
+        dev, rows = tokens.device, tokens.shape[0]
+        self.tok = torch.zeros((rows, 1), dtype=torch.long, device=dev)
+        self.off = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.slabs = {n: torch.empty_like(cache[n]) for n in STATIC_SLABS if n in cache}
+        d_self = cache["k"].shape[-1]
+        self.attn = [torch.zeros((rows, 1, d_self), dtype=dtype, device=dev)
+                     for _ in dec.blocks]
+        self.outs: list = [None] * (len(dec.blocks) + 1)
+        self.graphs = None
+        if capture:
+            self._capture(dev)
+
+    def _segment(self, i: int):
+        """Segment ``i``: ``(x, q, k_raw, v_raw)`` before layer ``i``'s
+        self-attention, or the logits after the last layer."""
+        dec = self.params.decoder
+        if i == 0:
+            pos = dec.positional_embedding.index_select(0, self.off)
+            x = _embed(dec, self.tok, pos, self.dtype)
+        else:
+            x = _step_out(dec.blocks[i - 1], self.outs[i - 1][0], self.attn[i - 1], self.slabs,
+                          i - 1, self.n_head)
+        if i == len(dec.blocks):
+            return _logits(self.params, x, gather_logits=True)
+        return _step_in(dec.blocks[i], x, self.slabs, i, self.n_head, self.use_gated,
+                        self.have_xt_kv, self.sequential_xt)
+
+    def _capture(self, dev: torch.device) -> None:
+        pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        self.graphs = [torch.cuda.CUDAGraph() for _ in self.outs]
+        with torch.cuda.stream(side):
+            for i, g in enumerate(self.graphs):
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    self.outs[i] = self._segment(i)
+                finally:
+                    g.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def run(self, tokens: torch.Tensor, cache: Cache, offset: int) -> torch.Tensor:
+        if cache["xa_k"] is not self.slabs["xa_k"]:  # a new batch: its slabs in
+            for n, slab in self.slabs.items():
+                slab.copy_(cache[n])
+                cache[n] = slab
+        self.tok.copy_(tokens)
+        self.off.fill_(offset)
+        for i in range(len(self.outs)):
+            if self.graphs is None:
+                self.outs[i] = self._segment(i)
+            else:
+                self.graphs[i].replay()
+            if i < len(self.attn):
+                _, q, k_raw, v_raw = self.outs[i]
+                attn = decode_attn.fused_step(q, k_raw, v_raw, cache["k"][i], cache["v"][i],
+                                              offset, self.n_self)[0]
+                self.attn[i].copy_(attn)
+        return self.outs[-1]
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,10 @@ Port of ``whisper_flamingo_tpu/profiling.py``, with the span recorder added:
 The spans the port opens, and where: ``conditioner.tokenize`` and
 ``conditioner.bert`` (``models/bert.HFBertConditioner.encode``);
 ``decode.step``, its children ``decode.forward`` and ``decode.sync``
-(``decoding.DecodingTask._main_loop``); ``serve.poll``, ``serve.admit``,
+(``decoding.DecodingTask._main_loop``); ``decode.capture`` inside a
+``decode.forward`` and the counters ``decode.graph_steps``,
+``decode.eager_steps`` and ``decode.graph_captures``
+(``models.whisper.StepGraphs``); ``serve.poll``, ``serve.admit``,
 ``serve.step``, per request ``serve.queued`` and ``serve.in_slot``, and the
 counters ``serve.slot_steps`` and ``serve.tokens``
 (``serving.ContinuousBatcher``); ``train.step``, ``train.forward`` and
