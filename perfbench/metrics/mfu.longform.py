@@ -1,0 +1,12 @@
+"""The operations of the units the window completed (``perfbench.flops``,
+``perfbench.av_flops``) over the window's length times the bf16 dense
+peak, in %."""
+
+from perfbench import roofline
+
+
+def read(r):
+    flops, window = r.stats.get("flops"), r.stats.get("window_s")
+    if not flops or not window:
+        return None
+    return 100.0 * flops / (window * roofline.BF16_PEAK_FLOPS)

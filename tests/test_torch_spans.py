@@ -292,3 +292,58 @@ def test_train_step_bit_equal_and_its_spans(model):
     (bwd,) = _named(sink, "train.backward")
     assert fwd.parent == step.id and bwd.parent == step.id
     assert step.start_ns <= fwd.start_ns <= fwd.end_ns <= bwd.start_ns <= bwd.end_ns <= step.end_ns
+
+
+@pytest.fixture(scope="module")
+def av_model():
+    from whisper_flamingo_tpu_torch.models import avhubert
+    from whisper_flamingo_tpu_torch.models.whisper import ModelExtras
+
+    cfg = avhubert.VIDEO_ENCODER_CONFIGS["debug"]
+    whisper = init_params(torch.Generator().manual_seed(3), DIMS,
+                          ModelExtras(add_gated_x_attn=1, num_langs=1, bert_dim=cfg.embed_dim),
+                          device="cpu")
+    trunk = avhubert.init_video_encoder(torch.Generator().manual_seed(4), cfg, device="cpu")
+    return avhubert.AVWhisper(whisper=whisper, video=trunk)
+
+
+def _lip_video(seed, b, t):
+    return torch.randn((b, t, 16, 16), generator=torch.Generator().manual_seed(seed))
+
+
+def test_av_trunk_spans_nest_and_frames_add_up(av_model):
+    from whisper_flamingo_tpu_torch.models import avhubert
+
+    with profiling.collect() as sink:
+        avhubert.avhubert_encoder_apply(av_model.video, av_model.video_cfg,
+                                        video=_lip_video(0, 3, 7), lengths=[7, 5, 2])
+        avhubert.avhubert_encoder_apply(av_model.video, av_model.video_cfg,
+                                        video=_lip_video(1, 2, 4))
+    trunks = _named(sink, "av.trunk")
+    assert len(trunks) == 2
+    for name in ("av.frontend", "av.transformer"):
+        inner = _named(sink, name)
+        assert [s.parent for s in inner] == [t.id for t in trunks]
+        for s, t in zip(inner, trunks):
+            assert t.start_ns <= s.start_ns <= s.end_ns <= t.end_ns
+    assert sink.counters["av.frames"] == 7 + 5 + 2 + 2 * 4
+    assert sink.counters["av.frames"] + sink.counters["av.pad_frames"] == 3 * 7 + 2 * 4
+
+
+def test_av_graph_captures_stop_once_the_lengths_are_seen(av_model):
+    from whisper_flamingo_tpu_torch.models.whisper import StepGraphs
+
+    opts = DecodingOptions(language="en", without_timestamps=True, beam_size=2, sample_len=5,
+                           fp16=False)
+    av_model._tasks.clear()
+    av_model.task(opts).step_graphs = StepGraphs(capture=False)
+    mel = torch.randn((2, 80, 3000), generator=torch.Generator().manual_seed(5)) * 0.5
+    captures = []
+    with profiling.collect() as sink:
+        for _ in range(2):
+            for frames in (3, 8, 5):
+                av_model.decode(mel, opts, video=_lip_video(frames, 2, frames))
+            captures.append(sink.counters["decode.graph_captures"])
+    assert captures == [1, 1]  # one key for every length, none after the first pass
+    assert sink.counters["decode.graph_steps"] > 0
+    assert "decode.graph_evictions" not in sink.counters

@@ -258,10 +258,19 @@ def _apply_filters(cfg: _FilterConfig, logits: torch.Tensor, tokens: torch.Tenso
 
 class DecodingTask:
     """Static decode configuration plus the decode loop, on the model's
-    device (a model on the CPU exists only if the caller asked for it)."""
+    device (a model on the CPU exists only if the caller asked for it).
 
-    def __init__(self, model: "Whisper", options: DecodingOptions):
+    ``streams_at_ctx`` holds the gated slabs of every batch's conditioning
+    streams at the decoder's ``n_text_ctx`` keys, the keys past a batch's
+    stream length masked out of the gated softmax
+    (``init_cache(xt_at_ctx=True)``): a task held over batches whose
+    streams differ in length then keeps one step-graph key. False keeps
+    each batch's own length."""
+
+    def __init__(self, model: "Whisper", options: DecodingOptions,
+                 streams_at_ctx: bool = False):
         self.model = model
+        self.streams_at_ctx = streams_at_ctx
         language = options.language or "en"
         tokenizer = get_tokenizer(
             model.is_multilingual, num_languages=model.num_languages,
@@ -399,7 +408,8 @@ class DecodingTask:
         # audio are the same across a row's beams)
         quantize = self.options.quantize
         cache = init_cache(params, dims, audio_features, xt=xt, max_len=max_len, dtype=dtype,
-                           quantize=quantize is not None, quantize_self=quantize == "int8kv")
+                           quantize=quantize is not None, quantize_self=quantize == "int8kv",
+                           xt_at_ctx=self.streams_at_ctx)
         logits, cache = decoder_apply(
             params, dims, init_tokens, cache=cache, offset=0, dtype=dtype,
             sequential_xt=sequential_xt,

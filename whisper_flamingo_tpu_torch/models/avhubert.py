@@ -23,23 +23,33 @@ Port of ``whisper_flamingo_tpu/models/avhubert.py``:
 - :class:`AVWhisper`, Whisper with the trunk's features as the gated
   cross-attention stream, the ``test_a`` / ``test_v`` modality masks and
   train-time modality dropout drawn from an explicit ``torch.Generator``.
+  Its decode entry holds one ``DecodingTask`` for its options over every
+  batch, the gated slabs at the decoder's stream cap (``n_text_ctx``), so
+  that batches of any video length share one step-graph key.
+
+Spans: ``av.trunk`` (:func:`avhubert_encoder_apply`), inside it
+``av.frontend`` (the lip-video ResNet) and ``av.transformer`` (the
+positional conv, the layers and the last LayerNorm). Counters:
+``av.frames`` (the clips' own video frames through the trunk) and
+``av.pad_frames`` (the frames padding to the batch's longest clip adds).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Any, Mapping, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling
+from ..decoding import DecodingOptions, DecodingTask
 from ..ops.attention import qkv_attention
 from ..utils import resolve_device
 from .dims import ModelDimensions
-from ..decoding import decode
 from .visual import (
     VisualFrontend,
     init_visual_frontend,
@@ -202,8 +212,10 @@ def avhubert_encoder_apply(
     video_mask: Optional[torch.Tensor] = None,
     audio_mask: Optional[torch.Tensor] = None,
     dtype: torch.dtype = torch.float32,
+    lengths: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """The AV-HuBERT encoder over either or both modalities.
+    """The AV-HuBERT encoder over either or both modalities, under the span
+    ``av.trunk``.
 
     ``video``: (B, T, H, W) lip crops; ``audio``: (B, T, audio_feat_dim)
     stacked log-filterbank features at the 25 fps video rate. A missing
@@ -212,10 +224,20 @@ def avhubert_encoder_apply(
     ``video_mask`` / ``audio_mask``: optional (B,) bools; a False row has
     that stream's projected features zeroed before the fusion (a zero
     input alone is not zero after the conv biases and the LayerNorms).
-    Returns (B, T, embed_dim)."""
+    ``lengths``: each clip's own frame count, the rest of T its padding
+    (only counted: every frame goes through the trunk). Returns (B, T,
+    embed_dim)."""
     if video is None and audio is None:
         raise ValueError("at least one of video/audio must be given")
+    b, t = (video if video is not None else audio).shape[:2]
+    real = b * t if lengths is None else int(sum(lengths))
+    profiling.count("av.frames", real)
+    profiling.count("av.pad_frames", b * t - real)
+    with profiling.span("av.trunk"):
+        return _trunk(params, cfg, video, audio, video_mask, audio_mask, dtype)
 
+
+def _trunk(params, cfg, video, audio, video_mask, audio_mask, dtype) -> torch.Tensor:
     vfeat = None
     if video is not None:
         fx = params.feature_extractor_video
@@ -244,7 +266,11 @@ def avhubert_encoder_apply(
         if hasattr(params, "post_extract_proj"):
             x = linear(params.post_extract_proj, x)
 
-    enc = params.encoder
+    with profiling.span("av.transformer"):
+        return _transformer(params.encoder, cfg, x)
+
+
+def _transformer(enc: _Transformer, cfg: VideoEncoderConfig, x: torch.Tensor) -> torch.Tensor:
     x = x + _conv_pos_embed(enc.pos_conv[0], x, cfg)
     if not cfg.layer_norm_first:
         x = layer_norm(enc.layer_norm, x)
@@ -440,6 +466,7 @@ class AVWhisper:
     video: VideoEncoder
     prob_av: float = 0.5  # P(use both) during training
     prob_a: float = 0.25  # P(audio only); remainder = video only
+    _tasks: Dict[str, DecodingTask] = field(default_factory=dict, init=False, repr=False)
 
     @property
     def dims(self) -> ModelDimensions:
@@ -449,7 +476,7 @@ class AVWhisper:
     def video_cfg(self) -> VideoEncoderConfig:
         return self.video.cfg
 
-    def _conditioning(self, video, audio, *, dtype):
+    def _conditioning(self, video, audio, *, dtype, lengths=None):
         """The conditioning stream from the trunk over whichever of video /
         stacked-fbank audio is given (audio only with an audio trunk); the
         missing one contributes zeros. None when nothing conditions."""
@@ -462,7 +489,7 @@ class AVWhisper:
             return None if x is None else torch.as_tensor(x).to(dev)
 
         return avhubert_encoder_apply(self.video, self.video_cfg, video=on(video),
-                                      audio=on(a_in), dtype=dtype)
+                                      audio=on(a_in), dtype=dtype, lengths=lengths)
 
     def encode(
         self, mel, video=None, audio=None, *, test_a: bool = False, test_v: bool = False,
@@ -495,11 +522,30 @@ class AVWhisper:
                                          dtype=dtype, device=audio_features.device)
         return audio_features, video_features
 
+    def task(self, options: DecodingOptions) -> DecodingTask:
+        """The ``DecodingTask`` held for ``options``: made on first use, with
+        the gated slabs at the stream cap ``n_text_ctx`` (the trunk's
+        features are at most that long: the decoder's positions cap them),
+        and kept, with its decode-time copy of the decoder and its step
+        graphs, for every later batch with equal options. Other options
+        replace it, so one copy of the decoder is held. The copy is made
+        once: after a change to the Whisper weights, clear
+        ``_tasks``."""
+        key = repr(options)
+        task = self._tasks.get(key)
+        if task is None:
+            self._tasks.clear()
+            task = self._tasks[key] = DecodingTask(self.whisper, options, streams_at_ctx=True)
+        return task
+
     def decode(self, mel, options, video=None, audio=None,
-               test_a: bool = False, test_v: bool = False):
+               test_a: bool = False, test_v: bool = False, video_lengths=None):
         """AV decode (the reference's ``whisper.decode(model, mel, options,
-        x_v, test_v, test_a)``); ``audio`` adds the audio-trunk stream
-        (``--modalities avsr``).
+        x_v, test_v, test_a)``) through the task held for ``options``
+        (:meth:`task`); ``audio`` adds the audio-trunk stream
+        (``--modalities avsr``); ``video_lengths``, each clip's own frames
+        in a ``video`` padded to the batch's longest, feeds the frame
+        counters.
 
         ``test_a`` decodes with a present-but-zero stream of one frame (the
         gated x-attn over identical zero frames does not depend on their
@@ -507,14 +553,18 @@ class AVWhisper:
         features, which take the decode's pre-encoded branch, so the
         Whisper encoder does not run."""
         mel = torch.as_tensor(mel)
+        single = mel.dim() == 2
+        if single:
+            mel = mel[None]
         dtype, dev = self.whisper.dtype, self.whisper.device
         if test_a:
-            b = mel.shape[0] if mel.dim() == 3 else 1
-            vf = torch.zeros((b, 1, self.video_cfg.embed_dim), dtype=dtype, device=dev)
+            vf = torch.zeros((mel.shape[0], 1, self.video_cfg.embed_dim), dtype=dtype,
+                             device=dev)
         else:
-            vf = self._conditioning(video, audio, dtype=dtype)
-        xt = vf[None] if vf is not None and vf.dim() == 3 else None
+            vf = self._conditioning(video, audio, dtype=dtype, lengths=video_lengths)
+        xt = None if vf is None else vf[None]
         if test_v:
             d = self.dims
             mel = torch.zeros(mel.shape[:-2] + (d.n_audio_ctx, d.n_audio_state), dtype=dtype)
-        return decode(self.whisper, mel, options, xt=xt)
+        results = self.task(options).run(mel, xt=xt)
+        return results[0] if single else results

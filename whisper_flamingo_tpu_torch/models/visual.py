@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling
 from ..utils import resolve_device
 
 _STAGES = (("layer1", 64, 1), ("layer2", 128, 2), ("layer3", 256, 2), ("layer4", 512, 2))
@@ -100,7 +101,13 @@ def _basic_block(p: BasicBlock, x: torch.Tensor) -> torch.Tensor:
 def visual_frontend_apply(
     params: VisualFrontend, frames: torch.Tensor, dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
-    """(B, T, H, W) grayscale lip crops -> (B, T, 512) frame features."""
+    """(B, T, H, W) grayscale lip crops -> (B, T, 512) frame features, under
+    the span ``av.frontend``."""
+    with profiling.span("av.frontend"):
+        return _frontend(params, frames, dtype)
+
+
+def _frontend(params: VisualFrontend, frames: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     b = frames.shape[0]
     stem = params.frontend3D
     x = frames.to(dtype)[:, None]  # (B, 1, T, H, W)

@@ -46,7 +46,11 @@ for ``lax.scan``). The decode caches are dicts of stacked tensors:
 (L, B, H, Ta, Dh) and ``xt_k``/``xt_v`` (L, n_langs, B, H, S, Dh)
 head-split, K pre-scaled. The static K slabs are stored as float32
 holding the compute-dtype values, so the per-step cross-attention logits
-are fp32 without an upcast each step.
+are fp32 without an upcast each step. A cache made with a stream capacity
+holds the gated slabs at that length, zero past the streams' S keys, with
+the additive key mask ``xt_mask`` (B, 1, 1, capacity) that takes those keys
+out of the gated softmax: the attention is the one over the S keys, and
+streams of every length share one shape.
 
 Left out, each a TPU workaround or a later slice: ``CACHE_LOOP`` and
 ``SELECTOR_SELF`` (the selector form of many-row attention,
@@ -343,9 +347,10 @@ def attention_block(
     """Projected multi-head attention. ``kv_src`` selects cross-attention;
     ``k_override``/``v_override`` are cached head-split (B, H, T, Dh) slabs
     with K pre-scaled (int8 with per-head ``k_scale``/``v_scale`` in the
-    int8 modes). ``return_qk`` (no override) also returns the fp32
-    logits, as ``(out, logits)``. ``n_head`` is the model's count; a
-    split ``p`` runs its local heads.
+    int8 modes), ``mask`` then an additive (B, 1, 1, T) key mask or none.
+    ``return_qk`` (no override) also returns the fp32 logits, as ``(out,
+    logits)``. ``n_head`` is the model's count; a split ``p`` runs its
+    local heads.
 
     Beam grouping: when the slab batch is smaller than the query batch
     (beam search shares one audio stream across ``G`` beams) the beam axis
@@ -360,10 +365,11 @@ def attention_block(
         b = k_override.shape[0]
         if b != bq:
             out = xa_qkv_attention(q.reshape(b, (bq // b) * t, d), k_override, v_override,
-                                   n_head, k_scale, v_scale)
+                                   n_head, k_scale, v_scale, mask=mask)
             out = out.reshape(bq, t, d)
         else:
-            out = xa_qkv_attention(q, k_override, v_override, n_head, k_scale, v_scale)
+            out = xa_qkv_attention(q, k_override, v_override, n_head, k_scale, v_scale,
+                                   mask=mask)
         return row_linear(p.out, out, tp)
     src = x if kv_src is None else copy_to_tp(kv_src, tp)
     k = linear(p.key, src)
@@ -418,10 +424,12 @@ def _gated_x_attn_cached(
     p: ResidualAttentionBlock, x: torch.Tensor, xt_k: torch.Tensor, xt_v: torch.Tensor,
     n_head: int, sequential: bool = False,
     k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Gated x-attn over precomputed per-stream K/V (n_langs, B, H, S, Dh);
     in the int8 modes the slabs are int8 with per-stream, per-head scales
-    ``k_scale``/``v_scale`` (n_langs, B, H, 1, 1)."""
+    ``k_scale``/``v_scale`` (n_langs, B, H, 1, 1). ``mask``: the additive
+    (B, 1, 1, S) key mask of slabs held at a capacity, or none."""
     x_origin = x
     total_delta = torch.zeros_like(x)
     for i in range(xt_k.shape[0]):
@@ -431,7 +439,7 @@ def _gated_x_attn_cached(
             sub.attn, layer_norm(sub.attn_ln, src), n_head,
             k_override=xt_k[i], v_override=xt_v[i],
             k_scale=None if k_scale is None else k_scale[i],
-            v_scale=None if v_scale is None else v_scale[i],
+            v_scale=None if v_scale is None else v_scale[i], mask=mask,
         )
         if sequential:
             x = x + attn_out * _gate(sub.attn_gate, x)
@@ -567,6 +575,7 @@ def init_cache(
     params: Whisper, dims: ModelDimensions, audio_features: torch.Tensor, *,
     xt: Optional[torch.Tensor] = None, max_len: Optional[int] = None,
     dtype: torch.dtype = torch.float32, quantize: bool = False, quantize_self: bool = False,
+    xt_at_ctx: bool = False,
 ) -> Cache:
     """Preallocate the decode cache and precompute all static K/V.
 
@@ -580,6 +589,11 @@ def init_cache(
     ``xt_k_s``/``xt_v_s`` (L, n_langs, B, H, 1, 1). With ``quantize_self``
     (int8kv) the self cache is int8 too, with per-(token, head) scales
     ``k_s``/``v_s`` (L, B, T, H), zero where nothing is written yet.
+
+    With ``xt_at_ctx`` the gated slabs hold ``n_text_ctx`` keys (at least
+    the streams' S): the first S are the streams', the rest zero, and
+    ``xt_mask`` (B, 1, 1, n_text_ctx) is 0 over the first S and -inf past
+    them, so that streams of any length up to that cap make one shape.
 
     Under tensor parallelism the self cache and the gated slabs hold this
     rank's heads (D / n_model wide); the audio slabs are whole (the
@@ -608,34 +622,41 @@ def init_cache(
         cache["k_s"] = torch.zeros((L, B, T, h_self), dtype=torch.float32, device=dev)
         cache["v_s"] = torch.zeros((L, B, T, h_self), dtype=torch.float32, device=dev)
 
-    def store(name: str, idx, k: torch.Tensor, v: torch.Tensor) -> None:
+    def store(name: str, idx: tuple, k: torch.Tensor, v: torch.Tensor, keys: tuple = ()) -> None:
+        # ``keys`` narrows the slab (not its per-head scale) to the keys written
         if quantize:
-            cache[name + "_k"][idx], cache[name + "_k_s"][idx] = quantize_int8(k, dim=(-2, -1))
-            cache[name + "_v"][idx], cache[name + "_v_s"][idx] = quantize_int8(v, dim=(-2, -1))
-        else:
-            cache[name + "_k"][idx], cache[name + "_v"][idx] = k, v
+            k, cache[name + "_k_s"][idx] = quantize_int8(k, dim=(-2, -1))
+            v, cache[name + "_v_s"][idx] = quantize_int8(v, dim=(-2, -1))
+        cache[name + "_k"][idx + keys], cache[name + "_v"][idx + keys] = k, v
 
     if quantize:
         for key in ("xa_k_s", "xa_v_s"):
             cache[key] = torch.empty((L, B, h_xa, 1, 1), dtype=torch.float32, device=dev)
     for l, blk in enumerate(dec.blocks):
-        store("xa", l, head_split_kv(linear(blk.cross_attn.key, xa), h_xa) * scale,
+        store("xa", (l,), head_split_kv(linear(blk.cross_attn.key, xa), h_xa) * scale,
               head_split_kv(linear(blk.cross_attn.value, xa), h_xa))
     if xt is not None and dec.blocks[0].gated:
         xt_p = _prepare_xt(params, dims, xt, dtype)  # (n_langs, B, S, D)
         n_langs, _, s, _ = xt_p.shape
+        cap = dims.n_text_ctx if xt_at_ctx else s  # _prepare_xt holds s to n_text_ctx
         h_xt = local_heads(dec.blocks[0].gated_x_attn_layers[0].attn, H)
-        cache["xt_k"] = torch.empty((L, n_langs, B, h_xt, s, dh), dtype=kdt, device=dev)
-        cache["xt_v"] = torch.empty((L, n_langs, B, h_xt, s, dh), dtype=vdt, device=dev)
+        slab = torch.zeros if cap > s else torch.empty
+        cache["xt_k"] = slab((L, n_langs, B, h_xt, cap, dh), dtype=kdt, device=dev)
+        cache["xt_v"] = slab((L, n_langs, B, h_xt, cap, dh), dtype=vdt, device=dev)
         if quantize:
             for key in ("xt_k_s", "xt_v_s"):
                 cache[key] = torch.empty((L, n_langs, B, h_xt, 1, 1), dtype=torch.float32,
                                          device=dev)
+        if xt_at_ctx:
+            mask = torch.zeros((B, 1, 1, cap), dtype=torch.float32, device=dev)
+            mask[..., s:] = float("-inf")
+            cache["xt_mask"] = mask
+        keys = (slice(None), slice(None), slice(0, s))  # (B, H, S) of a stream's slab
         for l, blk in enumerate(dec.blocks):
             for i in range(n_langs):
                 attn = blk.gated_x_attn_layers[i].attn
                 store("xt", (l, i), head_split_kv(linear(attn.key, xt_p[i]), h_xt) * scale,
-                      head_split_kv(linear(attn.value, xt_p[i]), h_xt))
+                      head_split_kv(linear(attn.value, xt_p[i]), h_xt), keys)
         cache["xt"] = xt_p
     return cache
 
@@ -794,6 +815,7 @@ def _step_in(blk: ResidualAttentionBlock, x: torch.Tensor, cache: Cache, l: int,
         x = _gated_x_attn_cached(
             blk, x, cache["xt_k"][l], cache["xt_v"][l], n_head, sequential=sequential_xt,
             k_scale=_slab(cache, "xt_k_s", l), v_scale=_slab(cache, "xt_v_s", l),
+            mask=cache.get("xt_mask"),
         )
     elif use_gated:
         x = _gated_ff_only(blk, x)
@@ -836,7 +858,8 @@ def _logits(params: Whisper, x: torch.Tensor, gather_logits: bool) -> torch.Tens
 
 # The static slabs the incremental step reads; the self cache k/v is read and
 # written only by the decode-attention kernel
-STATIC_SLABS = ("xa_k", "xa_v", "xa_k_s", "xa_v_s", "xt_k", "xt_v", "xt_k_s", "xt_v_s")
+STATIC_SLABS = ("xa_k", "xa_v", "xa_k_s", "xa_v_s", "xt_k", "xt_v", "xt_k_s", "xt_v_s",
+                "xt_mask")
 
 
 class StepGraphs:
@@ -862,9 +885,12 @@ class StepGraphs:
 
     One key is ``(params, rows, dtype, sequential streams, each static
     slab's shape and dtype)``: rows, audio frames, stream count and length,
-    quantization. Its first :attr:`WARMUP` forwards run the unsegmented
-    step; the next captures the segments (one memory pool a key) under the
-    span ``decode.capture`` and every later forward replays them. The
+    quantization. A cache whose gated slabs are held at a capacity
+    (``init_cache(xt_at_ctx=True)``, the audio-visual decode) gives every
+    stream length one key, its mask a static slab. Its first
+    :attr:`WARMUP` forwards run the unsegmented step; the next captures the
+    segments (one memory pool a key) under the span ``decode.capture`` and
+    every later forward replays them. The
     logits a replay returns are the holder's static tensor, overwritten by
     the next replay.
 

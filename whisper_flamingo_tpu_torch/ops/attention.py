@@ -156,9 +156,11 @@ def cached_qkv_attention(
 def xa_qkv_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
     k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Cross-attention of ``q`` (B, Tq, D) against a head-split, pre-scaled
-    (B, H, Tk, Dh) K/V slab. No mask.
+    (B, H, Tk, Dh) K/V slab; ``mask`` an optional additive key mask
+    broadcastable to (B, H, Tq, Tk) (a slab held at a capacity).
 
     With ``k_scale``/``v_scale`` (per-head (B, H, 1, 1) scales) the slabs
     are int8: K's scale multiplies q in q's dtype before QK^T, V's the
@@ -167,7 +169,7 @@ def xa_qkv_attention(
     qh = split_heads(q, n_head) * (d_head ** -0.25)
     if k_scale is not None:
         qh = qh * k_scale.to(qh.dtype)
-    return merge_heads(_attend(qh, k, v, out_dtype=q.dtype, weight_scale=v_scale))
+    return merge_heads(_attend(qh, k, v, mask, out_dtype=q.dtype, weight_scale=v_scale))
 
 
 def head_split_kv(x: torch.Tensor, n_head: int) -> torch.Tensor:

@@ -30,7 +30,10 @@ The spans the port opens, and where: ``conditioner.tokenize`` and
 ``serve.step``, per request ``serve.queued`` and ``serve.in_slot``, and the
 counters ``serve.slot_steps`` and ``serve.tokens``
 (``serving.ContinuousBatcher``); ``train.step``, ``train.forward`` and
-``train.backward`` (``training/steps``).
+``train.backward`` (``training/steps``); ``av.trunk`` with its children
+``av.frontend`` and ``av.transformer``, and the counters ``av.frames`` and
+``av.pad_frames`` (``models/avhubert.avhubert_encoder_apply``,
+``models/visual.visual_frontend_apply``).
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ contract):
 Modalities: ``asr`` (audio only, ``test_a``), ``vsr`` (video only,
 ``test_v``), ``avsr`` (both; an ``*-avsr`` trunk also reads the stacked
 fbank of the audio). The manifest is a TSV of id, wav path, text and
-video path (a .npy of (T, H, W) lip crops). Writes ``hypo.txt`` and
+video path (a .npy of (T, H, W) lip crops). Every batch decodes through
+the one ``DecodingTask`` the ``AVWhisper`` holds for the options, its video
+padded to the batch's longest clip. Writes ``hypo.txt`` and
 ``ref.txt`` under ``--decode-dir`` and prints WER and CER. It runs on the
 card unless ``--device`` names another; with no card and no device named
 it raises. :func:`main` returns the printed metrics.
@@ -109,10 +111,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             wt.log_mel_spectrogram(pad_or_trim(ex.audio), n_mels=model.dims.n_mels, device=device)
             for ex in batch
         ])
-        video_in = None
+        video_in = lengths = None
         if args.modalities != "asr":
             vids = [ex.video for ex in batch]  # loaded once by the source
-            max_t = max(v.shape[0] for v in vids)
+            lengths = [v.shape[0] for v in vids]
+            max_t = max(lengths)
             video_in = np.zeros((len(vids), max_t, *vids[0].shape[1:]), np.float32)
             for i, v in enumerate(vids):
                 video_in[i, : v.shape[0]] = v
@@ -127,6 +130,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         results = av.decode(
             mels, options, video=video_in, audio=fbanks,
             test_a=args.modalities == "asr", test_v=args.modalities == "vsr",
+            video_lengths=lengths,
         )
         for ex, r in zip(batch, results):
             hyps.append(normalizer(r.text))
