@@ -27,6 +27,20 @@ each printing one JSON line:
    MB read before each call (the decode loop's case; the kernels line's
    ``ms`` and ``library_ms``) and warm; their back-to-back event times and
    host time per call; the plain version's time.
+3b. xattn_step: the cached cross-attention kernel (``csrc/xattn_step.cu``)
+   against its plain version in bf16 at the AV beam step's audio slab (8
+   slab rows x 20 heads x 15 beams over 1,500 keys) and gated slab (448
+   keys, masked past 86-375), the small model's beam step (12 heads over
+   1,500 audio and 128 text keys) and serving's step (16 rows of one query
+   over 1,500 keys), held to ``XATTN_MAX_ERR`` and ``XATTN_RMS_REL``; two
+   launches give the same bits; two planted faults (the 28-key last tile
+   dropped, the gated mask ignored) must fail those limits. Its device
+   time per
+   call from the profiler with L2 flushed (the kernels line's ``ms``) and
+   warm, the host time per call, beside the byte bound (K and V of the
+   open keys read once), the plain version's device time and SDPA's over
+   the same head-split operands (``library_ms``, a yardstick the port
+   never calls).
 4. end to end through the port's entry points (``load_model("small")``,
    random weights from a seed; ``log_mel_spectrogram`` on the card;
    ``DecodingTask``) on the bench protocol: batch 8 of 30 s synthetic
@@ -164,7 +178,10 @@ each printing one JSON line:
     per step) and of ``recipes.evaluate`` in decode mode: beam 15 and greedy
     in bf16, then greedy in fp32 through the kernels and through the plain
     versions with the same tokens; 12 decode-attention launches per
-    incremental step and 12 flash64 launches per batch; RTF and tokens/s.
+    incremental step and 12 flash64 launches per batch; in the bf16 beam
+    run, 24 cross-attention kernel launches per decoder call (the audio and
+    text slabs of 12 layers, counted on the profiler: the step graphs
+    replay them); RTF and tokens/s.
 
 18. av: the audio-visual path at the full width of
     ``configs/audio-visual/av_en-x_small.yaml`` (Whisper ``small`` with one
@@ -500,6 +517,99 @@ def phase_decode_attn(torch, decode_attn, gen):
             rows.append(row)
     emit({"phase": "decode_attn", "cases": rows})
     return results[8], results[BATCH * BEAM]
+
+
+# The kernel against its plain version (``attention.xa_qkv_plain``): the
+# largest |err| and the rms error over the plain output's rms. Over eight
+# seeds at the cells' shapes the sound kernel read at most 3.9e-3 and
+# 2.0e-4 (PERF.md row 9); one that drops the 28-key last tile of 1,500
+# keys read at least 0.043 and 0.13, one that ignores the gated slab's
+# mask 0.19 and 0.26.
+XATTN_MAX_ERR = 8e-3
+XATTN_RMS_REL = 5e-3
+
+
+def xattn_errs(out, ref):
+    """(max |err|, rms error / rms of ``ref``) of a cross-attention output."""
+    diff = out.float() - ref.float()
+    return diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
+
+
+def phase_xattn_step(torch, xattn_step, gen):
+    import torch.nn.functional as F
+
+    from whisper_flamingo_tpu_torch.ops.attention import head_split_kv, xa_qkv_plain
+
+    flush = torch.zeros(32 << 20, dtype=torch.bfloat16, device="cuda")  # 64 MB > the L2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, results = [], {}
+    cases = {"av_audio": (8, 20, 15, 1500, None), "av_gated": (8, 20, 15, 448, (86, 375)),
+             "small_audio": (8, 12, 15, 1500, None), "small_text": (8, 12, 15, 128, None),
+             "serve": (16, 20, 1, 1500, None)}
+    for name, (slabs, heads, m, keys, valid) in cases.items():
+        d = heads * 64
+        q = torch.randn(slabs, m, d, generator=gen, device="cuda").bfloat16()
+        k = (head_split_kv(torch.randn(slabs, keys, d, generator=gen, device="cuda"), heads)
+             * 64 ** -0.25).bfloat16()
+        v = head_split_kv(torch.randn(slabs, keys, d, generator=gen, device="cuda"),
+                          heads).bfloat16()
+        mask, open_keys = None, slabs * keys
+        if valid is not None:  # a capacity slab: zero past each row's keys, masked there
+            lengths = torch.randint(valid[0], valid[1] + 1, (slabs,), generator=gen,
+                                    device="cuda")
+            past = torch.arange(keys, device="cuda")[None] >= lengths[:, None]
+            k.masked_fill_(past[:, None, :, None], 0)
+            v.masked_fill_(past[:, None, :, None], 0)
+            mask = torch.zeros(slabs, 1, 1, keys, device="cuda").masked_fill_(
+                past[:, None, None], float("-inf"))
+            open_keys = int(lengths.sum())
+        out = xattn_step.xattn_step(q, k, v, heads, mask)
+        again = xattn_step.xattn_step(q, k, v, heads, mask)
+        torch.cuda.synchronize()
+        ref = xa_qkv_plain(q, k, v, heads, mask)
+        err, rms = xattn_errs(out, ref)
+        if not (torch.isfinite(out).all().item() and err <= XATTN_MAX_ERR
+                and rms <= XATTN_RMS_REL and torch.equal(out, again)):
+            raise AssertionError(f"xattn_step {name}: max |err| {err} (limit {XATTN_MAX_ERR}), "
+                                 f"rms {rms} (limit {XATTN_RMS_REL}), or reruns differ")
+        # planted faults the limits must refuse: the keys' 28-key last tile
+        # dropped, the gated slab's mask ignored
+        faults = {}
+        if keys % 64:
+            cut = keys // 64 * 64
+            faults["tile_dropped"] = xattn_errs(xattn_step.xattn_step(
+                q, k[:, :, :cut].contiguous(), v[:, :, :cut].contiguous(), heads), ref)
+        if mask is not None:
+            faults["mask_ignored"] = xattn_errs(xattn_step.xattn_step(q, k, v, heads), ref)
+        for fault, (f_err, f_rms) in faults.items():
+            if f_err <= XATTN_MAX_ERR and f_rms <= XATTN_RMS_REL:
+                raise AssertionError(f"xattn_step {name}: the planted fault {fault} passes "
+                                     f"the limits ({f_err}, {f_rms})")
+        qh = (q.view(slabs, m, heads, 64).transpose(1, 2) * 64 ** -0.25).contiguous()
+        step = lambda: xattn_step.xattn_step(q, k, v, heads, mask)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, scale=1.0)
+        cluster, tpc = xattn_step.plan(slabs, m, keys, heads, sms,
+                                       xattn_step.occupancy(0, torch.bfloat16))
+        row = {"case": name, "slabs": slabs, "heads": heads, "rows": m, "keys": keys,
+               "open_keys": open_keys, "cluster": cluster, "tiles_per_block": tpc,
+               "blocks_per_sm": xattn_step.occupancy(0, torch.bfloat16)(tpc),
+               "max_abs_err": err, "rms_rel_err": rms, "rerun_equal": True,
+               "faults": {f: {"max_abs_err": e, "rms_rel_err": r} for f, (e, r) in faults.items()},
+               "ms": _profiled_ms(torch, step, 100, "xattn", flush),
+               "warm_ms": _profiled_ms(torch, step, 200, "xattn"),
+               "host_ms": host_ms(torch, step, 200),
+               "plain_ms": _profiled_ms(torch, lambda: xa_qkv_plain(q, k, v, heads, mask),
+                                        50, "", flush),
+               "library_ms": _profiled_ms(torch, sdpa, 100, "", flush),
+               "library_warm_ms": _profiled_ms(torch, sdpa, 200)}
+        # K and V of the open keys read once, q read and the output written
+        nbytes = 2 * (2 * open_keys * d + 2 * slabs * m * d)
+        row["bound_ms"], row["bound_by"] = bound(4.0 * open_keys * m * d, nbytes, "bfloat16")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        results[name] = row
+        rows.append(row)
+    emit({"phase": "xattn_step", "cases": rows})
+    return results["av_audio"]
 
 
 def phase_dtw(torch, dtw):
@@ -1035,7 +1145,10 @@ def _timed(torch, task, mel, iters, xt=None):
 def _plain_kernels(decode_attn, decode_mlp, flash64):
     """Swap every kernel of the decode path for its plain version; returns
     the function that swaps them back."""
-    saved = flash64.flash64_attention, decode_attn.fused_step, decode_mlp._launch
+    from whisper_flamingo_tpu_torch.ops import attention, xattn_step
+
+    saved = (flash64.flash64_attention, decode_attn.fused_step, decode_mlp._launch,
+             xattn_step.xattn_step)
 
     def plain_step(q, k_raw, v_raw, k_cache, v_cache, offset, n_head):
         return decode_attn.fused_step_plain(q, k_raw, v_raw, k_cache, v_cache, offset,
@@ -1044,9 +1157,11 @@ def _plain_kernels(decode_attn, decode_mlp, flash64):
     flash64.flash64_attention = flash64.flash64_attention_plain
     decode_attn.fused_step = plain_step
     decode_mlp._launch = decode_mlp.fused_mlp_plain
+    xattn_step.xattn_step = attention.xa_qkv_plain
 
     def restore():
-        flash64.flash64_attention, decode_attn.fused_step, decode_mlp._launch = saved
+        (flash64.flash64_attention, decode_attn.fused_step, decode_mlp._launch,
+         xattn_step.xattn_step) = saved
 
     return restore
 
@@ -1440,6 +1555,10 @@ def phase_text_conditioner(torch, device="cuda", mbert=MBERT, overrides=TEXT_OVE
 
     import numpy as np
 
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
     from whisper_flamingo_tpu_torch import decoding
     from whisper_flamingo_tpu_torch.data.dataset import SyntheticAsrSource
     from whisper_flamingo_tpu_torch.models import bert
@@ -1629,11 +1748,12 @@ def phase_text_conditioner(torch, device="cuda", mbert=MBERT, overrides=TEXT_OVE
 
         # (d) evaluate, decode mode, with xt from the conditioner
         decoded = []
-        steps_inc = [0]
+        steps_inc, calls = [0], [0]
         decoder_apply = decoding.decoder_apply
 
         def counting_decoder_apply(*a, **kw):
             steps_inc[0] += kw.get("offset", 0) > 0
+            calls[0] += 1
             return decoder_apply(*a, **kw)
 
         class RecordingTask(decoding.DecodingTask):
@@ -1646,31 +1766,44 @@ def phase_text_conditioner(torch, device="cuda", mbert=MBERT, overrides=TEXT_OVE
                                 "tokens": [list(r.tokens) for r in res]})
                 return res
 
-        def run_eval(*extra):
-            """One evaluate run; its tokens land in ``tokens[extra]``."""
+        def run_eval(*extra, traced=False):
+            """One evaluate run; its tokens land in ``tokens[extra]``. With
+            ``traced`` the profiler counts the cross-attention kernel's
+            device launches (the step graphs replay it, so the wrapper's
+            count would see only the captures)."""
             decoded.clear()
-            steps_inc[0] = decode_attn.fused_step.launches = flash64.flash64_forward.launches = 0
+            steps_inc[0] = calls[0] = 0
+            decode_attn.fused_step.launches = flash64.flash64_forward.launches = 0
             with (patch.object(common, "build_conditioner", lambda cfg: cond),
                   patch.object(evaluate, "DecodingTask", RecordingTask),
-                  patch.object(decoding, "decoder_apply", counting_decoder_apply)):
+                  patch.object(decoding, "decoder_apply", counting_decoder_apply),
+                  profile(activities=[ProfilerActivity.CUDA]) if traced
+                  else contextlib.nullcontext() as prof):
                 res = evaluate.main(args("eval", "mode=decode", f"pt_ckpt={ckpt}", *extra))
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+            xattn = _device_busy(torch, prof, "xattn_kernel")[1] if traced else None
             n_tok = sum(len(t) for d in decoded for t in d["tokens"])
             decode_s = sum(d["s"] for d in decoded)
             tokens[extra] = [t for d in decoded for t in d["tokens"]]
             return {**res, "batches": len(decoded), "rows": sum(d["rows"] for d in decoded),
                     "decoded_tokens": n_tok,
                     "decode_s": decode_s, "tokens_per_s": n_tok / decode_s,
-                    "incremental_steps": steps_inc[0],
+                    "incremental_steps": steps_inc[0], "decoder_calls": calls[0],
                     "launches": {"flash64": flash64.flash64_forward.launches,
-                                 "decode_attn": decode_attn.fused_step.launches}}
+                                 "decode_attn": decode_attn.fused_step.launches,
+                                 "xattn_step": xattn}}
 
         runs, tokens = {}, {}
         for name, extra in (("beam15_bf16", ("beam_size=15",)), ("greedy_bf16", ()),
                             ("greedy_fp32", ("precision=32",))):
-            r = runs[name] = run_eval(*extra)
+            r = runs[name] = run_eval(*extra, traced=name == "beam15_bf16")
+            # bf16: every decoder call (the prefill and each step) runs the
+            # kernel once a layer over the audio slab and once over the text
+            # stream's
             if (r["launches"]["decode_attn"] != text_layers * r["incremental_steps"]
                     or r["launches"]["flash64"] != n_layer * r["batches"]
+                    or name == "beam15_bf16"
+                    and r["launches"]["xattn_step"] != 2 * text_layers * r["decoder_calls"]
                     or not r["incremental_steps"] or not 0 < r["n_utts"] == r["rows"]):
                 raise AssertionError(f"evaluate {name}: {r}")
         fp32_tokens = tokens[("precision=32",)]
@@ -2959,7 +3092,8 @@ def main() -> int:
     import numpy as np
 
     import whisper_flamingo_tpu_torch as wt
-    from whisper_flamingo_tpu_torch.ops import cuda_build, decode_attn, decode_mlp, dtw, flash64
+    from whisper_flamingo_tpu_torch.ops import (cuda_build, decode_attn, decode_mlp, dtw, flash64,
+                                                xattn_step)
     from whisper_flamingo_tpu_torch.tokenizer import get_tokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2976,12 +3110,13 @@ def main() -> int:
           "libraries": [os.path.relpath(p, ROOT) for p in libs],
           "ptxas": {n: ptxas_report(cuda_build.build_log(n))
                     for n in ("flash64_fwd", "flash64_bwd", "flash64_fwd_probe",
-                              "decode_attn", "mma_pair")}})
+                              "decode_attn", "mma_pair", "xattn_step")}})
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # -- 2, 3. kernels against their plain versions ---------------------------
     fl = phase_flash64(torch, flash64, gen)
     da8, da120 = phase_decode_attn(torch, decode_attn, gen)
+    xa = phase_xattn_step(torch, xattn_step, gen)
 
     # -- 4. end to end ----------------------------------------------------------
     eot = get_tokenizer(True, language="en", task="transcribe").eot
@@ -3079,7 +3214,7 @@ def main() -> int:
     mark("15-16")
 
     # -- 17. the text conditioner and the text recipes -------------------------
-    phase_text_conditioner(torch)
+    text = phase_text_conditioner(torch)
     mark("17")
 
     # -- 18. the audio-visual path and the legacy modules ----------------------
@@ -3133,6 +3268,11 @@ def main() -> int:
               {**fv["csbound+augv"], "ms": fv["csbound+augv"]["alone_ms"]}),
         entry("mma_pair", "whisper_flamingo_tpu_torch/csrc/mma_pair.cu",
               "tools/packed_probe2.py:53", mp["launches"], mp),
+        # no TPU kernel: the JAX package left this attention to XLA; replayed
+        # by the step graphs, so its launches are the profiler's count over
+        # phase 17's bf16 beam-15 evaluate
+        entry("xattn_step", "whisper_flamingo_tpu_torch/csrc/xattn_step.cu", None,
+              text["evaluate"]["beam15_bf16"]["launches"]["xattn_step"], xa),
     ]
     emit({"phase": "summary", "total_s": time.perf_counter() - t_start, "phase_s": seconds})
     print(smi_line(), flush=True)

@@ -806,3 +806,169 @@ def test_mma_pair_kernel_refuses_what_it_cannot_take(gen):
         mma_pair.pair_chain(w, v, u, 0)
     with pytest.raises(ValueError):  # n 96: no cluster leaves a multiple of 32 columns
         mma_pair.pair_chain(w[:, :96].contiguous(), v[:96].contiguous(), u[:, :96].contiguous(), 1)
+
+
+# The cached cross-attention kernel (ops/xattn_step) at the cells' shapes:
+# (slab rows, heads, query rows a slab row, keys, valid keys or None)
+XATTN_SHAPES = {
+    "av_audio_beam15": (8, 20, 15, 1500, None),
+    "av_gated_beam15": (8, 20, 15, 448, (86, 375)),
+    "small_audio_beam15": (8, 12, 15, 1500, None),
+    "small_text_beam15": (8, 12, 15, 128, None),
+    "serve_16_rows": (16, 20, 1, 1500, None),
+    "prefill_224": (8, 20, 224, 1500, None),
+    "prefill_beam15_t3": (8, 20, 45, 448, (86, 375)),
+}
+
+
+def _xattn_inputs(gen, slabs, heads, rows, keys, valid, dtype=torch.bfloat16):
+    from whisper_flamingo_tpu_torch.ops.attention import head_split_kv
+
+    d = heads * 64
+    q = torch.randn(slabs, rows, d, generator=gen, device="cuda").to(dtype)
+    k = (head_split_kv(torch.randn(slabs, keys, d, generator=gen, device="cuda"), heads)
+         * 64 ** -0.25).to(dtype)
+    v = head_split_kv(torch.randn(slabs, keys, d, generator=gen, device="cuda"), heads).to(dtype)
+    mask = None
+    if valid is not None:  # a capacity slab: zero past each row's keys, masked there
+        lengths = torch.randint(valid[0], valid[1] + 1, (slabs,), generator=gen, device="cuda")
+        past = torch.arange(keys, device="cuda")[None] >= lengths[:, None]
+        k.masked_fill_(past[:, None, :, None], 0)
+        v.masked_fill_(past[:, None, :, None], 0)
+        mask = torch.zeros(slabs, 1, 1, keys, device="cuda").masked_fill_(
+            past[:, None, None], float("-inf"))
+    return q, k, v, mask
+
+
+# The kernel's own limits against its plain version: the largest |err| and
+# the rms error over the plain output's rms. Over eight seeds at these
+# shapes the sound kernel read at most 3.9e-3 (2 ulp of bf16 at 0.5) and
+# 2.0e-4; a dropped 28-key last tile read at least 0.043 and 0.13, an
+# ignored mask 0.19 and 0.26 (test_xattn_limits_refuse_planted_faults).
+XATTN_MAX_ERR = 8e-3
+XATTN_RMS_REL = 5e-3
+
+
+def _xattn_close(out, ref):
+    diff = out.float() - ref.float()
+    err, rms = diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
+    return err <= XATTN_MAX_ERR and rms <= XATTN_RMS_REL, (err, rms)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(XATTN_SHAPES))
+def test_xattn_kernel_matches_plain(gen, name, dtype):
+    """The kernel against its plain version (``attention.xa_qkv_plain``)
+    at each cell's shape; two launches give the same bits."""
+    from whisper_flamingo_tpu_torch.ops import xattn_step
+    from whisper_flamingo_tpu_torch.ops.attention import xa_qkv_plain
+
+    slabs, heads, rows, keys, valid = XATTN_SHAPES[name]
+    q, k, v, mask = _xattn_inputs(gen, slabs, heads, rows, keys, valid, dtype)
+    before = xattn_step.xattn_step.launches
+    out = xattn_step.xattn_step(q, k, v, heads, mask)
+    again = xattn_step.xattn_step(q, k, v, heads, mask)
+    assert xattn_step.xattn_step.launches == before + 2
+    ref = xa_qkv_plain(q, k, v, heads, mask)
+    assert out.dtype == dtype and out.shape == q.shape
+    close, errs = _xattn_close(out, ref)
+    assert close, errs
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("fault", ["tile_dropped", "mask_ignored"])
+def test_xattn_limits_refuse_planted_faults(gen, fault):
+    """The limits refuse a kernel that drops the 28-key last tile of 1,500
+    audio keys, or one that ignores a gated slab's mask."""
+    from whisper_flamingo_tpu_torch.ops import xattn_step
+    from whisper_flamingo_tpu_torch.ops.attention import xa_qkv_plain
+
+    if fault == "tile_dropped":
+        q, k, v, mask = _xattn_inputs(gen, 8, 20, 15, 1500, None)
+        got = xattn_step.xattn_step(q, k[:, :, :1472].contiguous(), v[:, :, :1472].contiguous(),
+                                    20)
+    else:
+        q, k, v, mask = _xattn_inputs(gen, 8, 20, 15, 448, (86, 375))
+        got = xattn_step.xattn_step(q, k, v, 20)
+    close, errs = _xattn_close(got, xa_qkv_plain(q, k, v, 20, mask))
+    assert not close, errs
+
+
+def test_xattn_kernel_in_a_cuda_graph(gen):
+    """Captured in a CUDA graph (as the decode step's segments capture it),
+    a replay gives the eager launch's bits, with new q values read."""
+    from whisper_flamingo_tpu_torch.ops import xattn_step
+
+    q, k, v, mask = _xattn_inputs(gen, 8, 20, 15, 448, (86, 375))
+    xattn_step.xattn_step(q, k, v, 20, mask)  # eager first: the launch's one-time set-up
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        out = xattn_step.xattn_step(q, k, v, 20, mask)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        q.copy_(torch.randn(q.shape, generator=gen, device="cuda"))
+        graph.replay()
+        assert torch.equal(out, xattn_step.xattn_step(q, k, v, 20, mask))
+
+
+def test_xattn_route_counts_the_kernel(gen):
+    """``xa_qkv_attention`` sends bf16 slabs to the kernel and fp32 and
+    int8 ones to the plain product, each call counted."""
+    from whisper_flamingo_tpu_torch import profiling
+    from whisper_flamingo_tpu_torch.ops import xattn_step
+    from whisper_flamingo_tpu_torch.ops.attention import xa_qkv_attention
+
+    q, k, v, mask = _xattn_inputs(gen, 2, 4, 15, 448, (86, 375))
+    before = xattn_step.xattn_step.launches
+    with profiling.collect() as sink:
+        out = xa_qkv_attention(q, k, v, 4, mask=mask)
+        xa_qkv_attention(q.float(), k.float(), v.float(), 4, mask=mask)
+        scale = torch.ones(2, 4, 1, 1, device="cuda")
+        xa_qkv_attention(q, k.to(torch.int8), v.to(torch.int8), 4, scale, scale, mask=mask)
+    assert xattn_step.xattn_step.launches == before + 1
+    assert sink.counters["decode.xattn_kernel"] == 1
+    assert sink.counters["decode.xattn_plain"] == 2
+    assert torch.equal(out, xattn_step.xattn_step(q, k, v, 4, mask))
+
+
+def test_xattn_plan_from_the_runtime_occupancy(gen):
+    """The card's occupancy for the kernel falls as a block's key tiles
+    grow and is 0 past what a block's shared memory holds; the plan on it
+    runs the AV beam step's audio and gated slabs in one wave of at least
+    two blocks an SM."""
+    from whisper_flamingo_tpu_torch.ops import xattn_step
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float16):
+        occ = xattn_step.occupancy(0, dtype)
+        counts = [occ(tpc) for tpc in (1, 2, 4, 6, 12, 24, 40)]
+        assert counts[0] >= 2 and all(a >= b >= 1 for a, b in zip(counts, counts[1:])), counts
+        assert occ(64) == 0
+        for keys in (1500, 448):
+            cluster, tpc = xattn_step.plan(8, 15, keys, 20, sms, occ)
+            assert 2 * sms <= 8 * 20 * cluster <= occ(tpc) * sms
+
+
+def test_xattn_kernel_refuses_what_it_cannot_take(gen):
+    from whisper_flamingo_tpu_torch.ops import xattn_step
+
+    q, k, v, mask = _xattn_inputs(gen, 2, 4, 15, 200, None)
+    with pytest.raises(TypeError):  # fp32
+        xattn_step.xattn_step(q.float(), k.float(), v.float(), 4)
+    with pytest.raises(TypeError):  # int8 slabs
+        xattn_step.xattn_step(q, k.to(torch.int8), v.to(torch.int8), 4)
+    with pytest.raises(ValueError):  # a non-contiguous K
+        xattn_step.xattn_step(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, 4)
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")
+    shifted = flat[1:].view(k.shape)  # 2 bytes off a 16-byte boundary
+    shifted.copy_(k)
+    with pytest.raises(ValueError):  # misaligned
+        xattn_step.xattn_step(q, shifted, v, 4)
+    with pytest.raises(ValueError):  # a per-query mask
+        xattn_step.xattn_step(q, k, v, 4, torch.zeros(2, 1, 15, 200, device="cuda"))
+    with pytest.raises(ValueError):  # d_head 32
+        xattn_step.xattn_step(q, k.reshape(2, 8, 200, 32), v.reshape(2, 8, 200, 32), 8)

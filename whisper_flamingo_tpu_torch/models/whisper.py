@@ -44,9 +44,9 @@ Layers are a ``ModuleList`` looped in Python (the JAX package stacked them
 for ``lax.scan``). The decode caches are dicts of stacked tensors:
 ``k``/``v`` (L, B, T, D) unsplit, written in place; ``xa_k``/``xa_v``
 (L, B, H, Ta, Dh) and ``xt_k``/``xt_v`` (L, n_langs, B, H, S, Dh)
-head-split, K pre-scaled. The static K slabs are stored as float32
-holding the compute-dtype values, so the per-step cross-attention logits
-are fp32 without an upcast each step. A cache made with a stream capacity
+head-split, K pre-scaled, K and V in the compute dtype; on the card the
+per-step cross-attention over them is one kernel that accumulates the
+logits in fp32 (:mod:`..ops.xattn_step`). A cache made with a stream capacity
 holds the gated slabs at that length, zero past the streams' S keys, with
 the additive key mask ``xt_mask`` (B, 1, 1, capacity) that takes those keys
 out of the gated softmax: the attention is the one over the S keys, and
@@ -581,8 +581,9 @@ def init_cache(
 
     The audio cross-attention K/V (and, with conditioning streams, the
     gated x-attn K/V) depend only on the encoder output and the streams, so
-    they are computed once here. The self cache is zeros (L, B, T, D) with
-    T = ``max_len`` (default ``n_text_ctx``).
+    they are computed once here, K pre-scaled, both in the compute
+    ``dtype``. The self cache is zeros (L, B, T, D) with T = ``max_len``
+    (default ``n_text_ctx``).
 
     With ``quantize`` the static slabs are int8 with one float32 scale per
     head over (T, Dh): ``xa_k_s``/``xa_v_s`` (L, B, H, 1, 1) and
@@ -608,15 +609,14 @@ def init_cache(
     h_xa = local_heads(dec.blocks[0].cross_attn, H)
     dev = audio_features.device
     xa = audio_features.to(dtype)
-    kdt = torch.int8 if quantize else torch.float32  # fp32 holds compute-dtype values
-    vdt = torch.int8 if quantize else dtype
+    xdt = torch.int8 if quantize else dtype  # the static slabs' dtype
     sdt = torch.int8 if quantize_self else dtype
     ta = xa.shape[1]
     cache: Cache = {
         "k": torch.zeros((L, B, T, h_self * dh), dtype=sdt, device=dev),
         "v": torch.zeros((L, B, T, h_self * dh), dtype=sdt, device=dev),
-        "xa_k": torch.empty((L, B, h_xa, ta, dh), dtype=kdt, device=dev),
-        "xa_v": torch.empty((L, B, h_xa, ta, dh), dtype=vdt, device=dev),
+        "xa_k": torch.empty((L, B, h_xa, ta, dh), dtype=xdt, device=dev),
+        "xa_v": torch.empty((L, B, h_xa, ta, dh), dtype=xdt, device=dev),
     }
     if quantize_self:
         cache["k_s"] = torch.zeros((L, B, T, h_self), dtype=torch.float32, device=dev)
@@ -641,8 +641,8 @@ def init_cache(
         cap = dims.n_text_ctx if xt_at_ctx else s  # _prepare_xt holds s to n_text_ctx
         h_xt = local_heads(dec.blocks[0].gated_x_attn_layers[0].attn, H)
         slab = torch.zeros if cap > s else torch.empty
-        cache["xt_k"] = slab((L, n_langs, B, h_xt, cap, dh), dtype=kdt, device=dev)
-        cache["xt_v"] = slab((L, n_langs, B, h_xt, cap, dh), dtype=vdt, device=dev)
+        cache["xt_k"] = slab((L, n_langs, B, h_xt, cap, dh), dtype=xdt, device=dev)
+        cache["xt_v"] = slab((L, n_langs, B, h_xt, cap, dh), dtype=xdt, device=dev)
         if quantize:
             for key in ("xt_k_s", "xt_v_s"):
                 cache[key] = torch.empty((L, n_langs, B, h_xt, 1, 1), dtype=torch.float32,

@@ -9,7 +9,11 @@ Port of ``whisper_flamingo_tpu/ops/attention.py``. The contract is kept:
   before the V product.
 
 Layouts: the self cache is unsplit (B, T_max, D); the static cross-attention
-slabs (audio features, conditioning streams) are head-split (B, H, T, Dh).
+slabs (audio features, conditioning streams) are head-split (B, H, T, Dh),
+K and V in the compute dtype (int8 in the quantized modes). On the card
+:func:`xa_qkv_attention` over bf16 or fp16 slabs at d_head 64 runs the
+cached cross-attention kernel (:mod:`.xattn_step`), which takes the
+compute-dtype operands and accumulates the logits in fp32.
 
 Left out, each a TPU workaround: the transposed (B, H, Dh, T) slabs kept
 off the 128-lane axis, the selector-matrix form of many-row attention
@@ -26,7 +30,8 @@ from typing import Optional, Union
 
 import torch
 
-from . import flash64
+from .. import profiling
+from . import flash64, xattn_step
 
 NEG_INF = float("-inf")
 
@@ -164,12 +169,33 @@ def xa_qkv_attention(
 
     With ``k_scale``/``v_scale`` (per-head (B, H, 1, 1) scales) the slabs
     are int8: K's scale multiplies q in q's dtype before QK^T, V's the
-    weights in their dtype."""
-    d_head = q.shape[-1] // n_head
-    qh = split_heads(q, n_head) * (d_head ** -0.25)
+    weights in their dtype.
+
+    On the card, bf16 or fp16 slabs at d_head 64 go to the kernel
+    (:func:`.xattn_step.xattn_step`, counter ``decode.xattn_kernel``); the
+    int8 and fp32 ones to the plain product (``decode.xattn_plain``)."""
+    unscaled = k_scale is None and v_scale is None
+    if unscaled and xattn_step.takes(q, k, n_head):
+        profiling.count("decode.xattn_kernel")
+        return xattn_step.xattn_step(q, k, v, n_head, mask)
+    if q.is_cuda:
+        profiling.count("decode.xattn_plain")
+    if unscaled:
+        return xa_qkv_plain(q, k, v, n_head, mask)
+    qh = split_heads(q, n_head) * ((q.shape[-1] // n_head) ** -0.25)
     if k_scale is not None:
         qh = qh * k_scale.to(qh.dtype)
     return merge_heads(_attend(qh, k, v, mask, out_dtype=q.dtype, weight_scale=v_scale))
+
+
+def xa_qkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`xa_qkv_attention` over unquantized slabs in plain PyTorch: q
+    scaled by d_head^-0.25 in its dtype, fp32 logits plus the mask, an fp32
+    softmax, the weights in q's dtype for the V product. The route off the
+    kernel, and what the kernel is held to."""
+    qh = split_heads(q, n_head) * ((q.shape[-1] // n_head) ** -0.25)
+    return merge_heads(_attend(qh, k, v, mask, out_dtype=q.dtype))
 
 
 def head_split_kv(x: torch.Tensor, n_head: int) -> torch.Tensor:

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(CSRC)), "build", "wf_torch_kernels"
 )
 KERNELS = ("flash64_fwd", "flash64_bwd", "decode_attn", "decode_mlp", "dtw",
-           "flash64_fwd_probe", "mma_pair")
+           "flash64_fwd_probe", "mma_pair", "xattn_step")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

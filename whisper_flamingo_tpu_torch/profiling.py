@@ -26,7 +26,11 @@ The spans the port opens, and where: ``conditioner.tokenize`` and
 (``decoding.DecodingTask._main_loop``); ``decode.capture`` inside a
 ``decode.forward`` and the counters ``decode.graph_steps``,
 ``decode.eager_steps`` and ``decode.graph_captures``
-(``models.whisper.StepGraphs``); ``serve.poll``, ``serve.admit``,
+(``models.whisper.StepGraphs``); the counters ``decode.xattn_kernel`` and
+``decode.xattn_plain``, the cached cross-attentions on the card sent to the
+kernel and to the plain product (``ops.attention.xa_qkv_attention``, counted
+at the Python call: a captured segment's calls once, at capture);
+``serve.poll``, ``serve.admit``,
 ``serve.step``, per request ``serve.queued`` and ``serve.in_slot``, and the
 counters ``serve.slot_steps`` and ``serve.tokens``
 (``serving.ContinuousBatcher``); ``train.step``, ``train.forward`` and
