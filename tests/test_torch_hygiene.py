@@ -32,9 +32,6 @@ import whisper_flamingo_tpu_torch.ops.quant, whisper_flamingo_tpu_torch.ops.deco
 import whisper_flamingo_tpu_torch.ops.flash64_variants, whisper_flamingo_tpu_torch.ops.mma_pair
 import whisper_flamingo_tpu_torch.tools.flash64_fwd_probe
 import whisper_flamingo_tpu_torch.tools.packed_probe2
-import whisper_flamingo_tpu_torch.tools.flash64_ab
-import whisper_flamingo_tpu_torch.tools.dtw_mlp_ab
-import whisper_flamingo_tpu_torch.tools.mma_pair_ab
 import whisper_flamingo_tpu_torch.models.bert
 import whisper_flamingo_tpu_torch.recipes.trans_asr, whisper_flamingo_tpu_torch.recipes.transkd_asr
 import whisper_flamingo_tpu_torch.recipes.distil_prompt, whisper_flamingo_tpu_torch.recipes.evaluate
@@ -97,8 +94,7 @@ def test_sources_name_no_jax_module():
                 "training/steps", "training/trainer", "recipes/common", "recipes/whisper_ft",
                 "serving", "speculative", "ops/quant", "ops/decode_mlp",
                 "ops/flash64_variants", "ops/mma_pair", "tools/flash64_fwd_probe",
-                "tools/packed_probe2", "tools/flash64_ab", "tools/dtw_mlp_ab",
-                "tools/mma_pair_ab", "models/bert", "recipes/trans_asr",
+                "tools/packed_probe2", "models/bert", "recipes/trans_asr",
                 "recipes/transkd_asr", "recipes/distil_prompt", "recipes/evaluate",
                 "recipes/generate_pseudo_labels", "recipes/decode_matrix",
                 "recipes/keyword_stats", "models/visual", "models/avhubert",

@@ -4,7 +4,8 @@ requests arriving mid-flight, pooled with and without LPT admission,
 per-request caps, speculative slots, int8) gives every request the tokens
 of its own per-utterance ``decode``, and the JAX package's
 ``ContinuousBatcher`` tokens on the same weights and requests; the
-validation errors are JAX's.
+batcher's slots and speculative decoding start from the task's prefill
+set-up; the validation errors are JAX's.
 """
 
 import numpy as np
@@ -16,8 +17,9 @@ from whisper_flamingo_tpu.models.dims import MODEL_DIMS as JMODEL_DIMS
 from whisper_flamingo_tpu.models.whisper import Whisper as JWhisper
 from whisper_flamingo_tpu.serving import ContinuousBatcher as JContinuousBatcher
 
+from whisper_flamingo_tpu_torch import speculative
 from whisper_flamingo_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram, pad_or_trim
-from whisper_flamingo_tpu_torch.decoding import DecodingOptions, DecodingTask
+from whisper_flamingo_tpu_torch.decoding import DecodingOptions, DecodingTask, _features
 from whisper_flamingo_tpu_torch.models.dims import MODEL_DIMS
 from whisper_flamingo_tpu_torch.serving import BatchTranscriber, ContinuousBatcher
 
@@ -134,6 +136,63 @@ def test_continuous_batcher_matches_decode(models, name):
         assert abs(g.no_speech_prob - r.no_speech_prob) < 1e-6
         if not caps:
             assert abs(g.avg_logprob - r.avg_logprob) < 1e-4
+
+
+def _snapshot(state):
+    return {k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone()
+            for k, v in state.items()}
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("loop", ["batcher", "speculative"])
+def test_loops_start_from_the_task_setup(models, monkeypatch, loop, quantize):
+    """The batcher's slots and speculative decoding start from the task's
+    set-up: for the same mels their first tokens, log-probs, no-speech
+    probabilities and verifier and draft cache slabs equal a plain task's
+    prefill bit for bit, and the batcher steps with its task's decode copy."""
+    _, model = models
+    opts, K = _opts(quantize=quantize), 2
+    mel = torch.stack([_mel(w) for w in _waves(5, 3)])
+    ref = DecodingTask(model, opts)
+    init = torch.tensor([ref.initial_tokens] * len(mel))
+    feats = _features(model, mel, ref.compute_dtype)
+    logits, cache_v = ref.prefill(ref.params, feats, init, extra_len=K)
+    want = ref.first_tokens(logits, init, ref.max_len + K + 1,
+                            torch.full((len(mel),), ref.max_len))
+    want.update(cache_v=cache_v, no_speech_probs=ref.no_speech_probs(logits),
+                cache_d=ref.prefill(speculative.draft_params(ref, model), feats, init,
+                                    extra_len=K)[1])
+    if loop == "batcher":
+        cb = ContinuousBatcher(model, options=opts, slots=2, draft_model=model, draft_len=K)
+        got = cb._prefill([(m.numpy(), None) for m in mel])
+        used = []
+        cb._round = lambda params_v, params_d, s: used.append((params_v, params_d))
+        cb._step(cb._empty_state(2))
+        assert used[0][0] is cb._task.params and used[0][1] is cb._params_d
+    else:
+        seen = []
+        make_round = speculative.make_spec_round
+
+        def spying(*args):
+            round_fn = make_round(*args)
+
+            def first(params_v, params_d, s):
+                if not seen:
+                    seen.append(_snapshot(s))
+                return round_fn(params_v, params_d, s)
+            return first
+
+        monkeypatch.setattr(speculative, "make_spec_round", spying)
+        task = speculative.SpeculativeDecodingTask(model, model, opts, draft_len=K)
+        results = task.run(mel)
+        got = dict(seen[0], no_speech_probs=torch.tensor([r.no_speech_prob for r in results]))
+    for key, value in want.items():
+        if isinstance(value, dict):
+            assert got[key].keys() == value.keys(), key
+            for name, slab in value.items():
+                assert torch.equal(got[key][name], slab), (key, name)
+        else:
+            assert torch.equal(got[key], value.to(got[key].dtype)), key
 
 
 def test_continuous_batcher_per_request_caps(models):

@@ -320,6 +320,7 @@ class DecodingTask:
             apply_timestamps=not self.options.without_timestamps,
         )
         self.compute_dtype = torch.bfloat16 if options.fp16 else torch.float32
+        self._sequential_xt: bool = getattr(model.extras, "sequential_gated_x_attn", False)
         self.device = model.device
         self._params = None
         self.step_graphs = StepGraphs()
@@ -391,14 +392,67 @@ class DecodingTask:
             )
         return self._params
 
+    # -- the set-up of every decode loop -------------------------------------
+    # ``_main_loop``, the continuous batcher's slots and speculative
+    # decoding's verifier and draft start from these.
+
+    def new_cache(self, params: "Whisper", audio_features: torch.Tensor,
+                  xt: Optional[torch.Tensor] = None, extra_len: int = 0):
+        """A decode cache of ``params`` (the task's copy, or a draft's) over
+        ``audio_features`` and the streams ``xt``: the task's dtype and
+        quantize mode, ``max_len`` + ``extra_len`` self-cache slots (a
+        draft's K)."""
+        quantize = self.options.quantize
+        return init_cache(params, params.dims, audio_features, xt=xt,
+                          max_len=self.max_len + extra_len, dtype=self.compute_dtype,
+                          quantize=quantize is not None, quantize_self=quantize == "int8kv",
+                          xt_at_ctx=self.streams_at_ctx)
+
+    def prefill(self, params: "Whisper", audio_features: torch.Tensor,
+                init_tokens: torch.Tensor, xt: Optional[torch.Tensor] = None,
+                extra_len: int = 0):
+        """(fp32 logits (B, T, V), cache) after the initial tokens, at batch B."""
+        cache = self.new_cache(params, audio_features, xt, extra_len)
+        return decoder_apply(params, params.dims, init_tokens, cache=cache, offset=0,
+                             dtype=self.compute_dtype, sequential_xt=self._sequential_xt)
+
+    def no_speech_probs(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B,) no-speech probabilities at the SOT position of the prefill's
+        ``logits`` (NaN where the vocabulary has no such token)."""
+        no_speech = self.tokenizer.no_speech
+        if no_speech is None:
+            return torch.full((logits.shape[0],), float("nan"), device=logits.device)
+        return torch.softmax(logits[:, self.sot_index].float(), dim=-1)[:, no_speech]
+
+    def first_tokens(self, logits: torch.Tensor, init_tokens: torch.Tensor, width: int,
+                     caps: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The per-row greedy state after the prefill's ``logits``: ``tokens``
+        (B, width), the initial tokens and the first filtered token, EOT
+        after; ``lens``; ``caps`` (B,); ``finished`` (EOT or at its cap);
+        ``sum_logprobs``, the first token's log-prob."""
+        eot = self.tokenizer.eot
+        k, init_len = init_tokens.shape
+        dev = init_tokens.device
+        tokens = torch.full((k, width), eot, dtype=torch.long, device=dev)
+        tokens[:, :init_len] = init_tokens
+        flt = _apply_filters(self.filter_cfg, logits[:, -1].float(), tokens, init_len)
+        t0 = flt.argmax(dim=-1)
+        tokens[:, init_len] = t0
+        return {
+            "tokens": tokens,
+            "lens": torch.full((k,), init_len + 1, dtype=torch.long, device=dev),
+            "caps": caps,
+            "finished": (t0 == eot) | (init_len + 1 >= caps),
+            "sum_logprobs": torch.log_softmax(flt, dim=-1).gather(1, t0[:, None])[:, 0],
+        }
+
     # -- the decode loop ----------------------------------------------------
 
     def _main_loop(self, audio_features: torch.Tensor, init_tokens: torch.Tensor,
                    xt: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         dims, dtype, G = self.model.dims, self.compute_dtype, self.n_group
         eot, max_len, C = self.tokenizer.eot, self.max_len, self.max_candidates
-        params = self.params
-        sequential_xt = getattr(self.model.extras, "sequential_gated_x_attn", False)
+        params, sequential_xt = self.params, self._sequential_xt
         dev = audio_features.device
         n_audio, init_len = init_tokens.shape
         n_batch = n_audio * G
@@ -406,19 +460,8 @@ class DecodingTask:
 
         # the static K/V and the prefill run at batch B (prompts and
         # audio are the same across a row's beams)
-        quantize = self.options.quantize
-        cache = init_cache(params, dims, audio_features, xt=xt, max_len=max_len, dtype=dtype,
-                           quantize=quantize is not None, quantize_self=quantize == "int8kv",
-                           xt_at_ctx=self.streams_at_ctx)
-        logits, cache = decoder_apply(
-            params, dims, init_tokens, cache=cache, offset=0, dtype=dtype,
-            sequential_xt=sequential_xt,
-        )
-        no_speech = self.tokenizer.no_speech
-        if no_speech is not None:
-            no_speech_probs = torch.softmax(logits[:, self.sot_index].float(), dim=-1)[:, no_speech]
-        else:
-            no_speech_probs = torch.full((n_audio,), float("nan"), device=dev)
+        logits, cache = self.prefill(params, audio_features, init_tokens, xt)
+        no_speech_probs = self.no_speech_probs(logits)
 
         # expand only the per-beam state to B * G rows
         self_keys = [k for k in ("k", "v", "k_s", "v_s") if k in cache]

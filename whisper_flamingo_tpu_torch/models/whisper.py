@@ -389,23 +389,21 @@ def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(g.to(x.dtype))
 
 
-def gated_x_attn(
-    p: ResidualAttentionBlock, x: torch.Tensor, xt: torch.Tensor, n_head: int,
-    sequential: bool = False,
-) -> torch.Tensor:
-    """Flamingo gated conditioning over the stacked streams ``xt``
-    (n_langs, B, S, D); returns the updated x.
+def _gated_streams(p: ResidualAttentionBlock, x: torch.Tensor, n_streams: int, attend,
+                   sequential: bool) -> torch.Tensor:
+    """The gated block over ``n_streams`` streams; ``attend(i, sub, h)`` is
+    stream ``i``'s attention of its sub-block ``sub`` from ``h``, LN(x).
 
-    Parallel (default): each stream's sub-block attends from LN(x) of the
-    block input and contributes ``attn_out * tanh(gate)``; the deltas sum
-    into x. Sequential: each stream's delta lands before the next stream
-    attends. Both end with the shared tanh-gated FFN."""
+    Parallel: each stream attends from LN(x) of the block input and
+    contributes ``attn_out * tanh(gate)``; the deltas sum into x.
+    Sequential: each stream's delta lands before the next stream attends.
+    Both end with the shared tanh-gated FFN."""
     x_origin = x
     total_delta = torch.zeros_like(x)
-    for i in range(xt.shape[0]):
+    for i in range(n_streams):
         sub = p.gated_x_attn_layers[i]
         src = x if sequential else x_origin
-        attn_out = attention_block(sub.attn, layer_norm(sub.attn_ln, src), n_head, kv_src=xt[i])
+        attn_out = attend(i, sub, layer_norm(sub.attn_ln, src))
         if sequential:
             x = x + attn_out * _gate(sub.attn_gate, x)
         else:
@@ -413,6 +411,18 @@ def gated_x_attn(
     if not sequential:
         x = x_origin + total_delta
     return _gated_ff_only(p, x)
+
+
+def gated_x_attn(
+    p: ResidualAttentionBlock, x: torch.Tensor, xt: torch.Tensor, n_head: int,
+    sequential: bool = False,
+) -> torch.Tensor:
+    """Flamingo gated conditioning over the stacked streams ``xt``
+    (n_langs, B, S, D), parallel or ``sequential`` as in
+    :func:`_gated_streams`; returns the updated x."""
+    return _gated_streams(
+        p, x, xt.shape[0],
+        lambda i, sub, h: attention_block(sub.attn, h, n_head, kv_src=xt[i]), sequential)
 
 
 def _gated_ff_only(p: ResidualAttentionBlock, x: torch.Tensor) -> torch.Tensor:
@@ -430,24 +440,14 @@ def _gated_x_attn_cached(
     in the int8 modes the slabs are int8 with per-stream, per-head scales
     ``k_scale``/``v_scale`` (n_langs, B, H, 1, 1). ``mask``: the additive
     (B, 1, 1, S) key mask of slabs held at a capacity, or none."""
-    x_origin = x
-    total_delta = torch.zeros_like(x)
-    for i in range(xt_k.shape[0]):
-        sub = p.gated_x_attn_layers[i]
-        src = x if sequential else x_origin
-        attn_out = attention_block(
-            sub.attn, layer_norm(sub.attn_ln, src), n_head,
-            k_override=xt_k[i], v_override=xt_v[i],
+    def attend(i, sub, h):
+        return attention_block(
+            sub.attn, h, n_head, k_override=xt_k[i], v_override=xt_v[i],
             k_scale=None if k_scale is None else k_scale[i],
             v_scale=None if v_scale is None else v_scale[i], mask=mask,
         )
-        if sequential:
-            x = x + attn_out * _gate(sub.attn_gate, x)
-        else:
-            total_delta = total_delta + attn_out * _gate(sub.attn_gate, x)
-    if not sequential:
-        x = x_origin + total_delta
-    return _gated_ff_only(p, x)
+
+    return _gated_streams(p, x, xt_k.shape[0], attend, sequential)
 
 
 # ---------------------------------------------------------------------------

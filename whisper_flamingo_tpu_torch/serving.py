@@ -49,7 +49,8 @@ import torch
 from . import profiling
 from .audio import N_SAMPLES, load_audio, log_mel_spectrogram, pad_or_trim
 from .decoding import DecodingOptions, DecodingResult, DecodingTask, _apply_filters, _features
-from .models.whisper import decoder_apply, init_cache, prepare_decode_params
+from .models.whisper import decoder_apply
+from .speculative import SpeculativeDecodingTask, check_draft, draft_params, make_spec_round
 from .utils import compression_ratio, resolve_device
 
 State = Dict[str, object]
@@ -80,8 +81,6 @@ class BatchTranscriber:
         key = (self.options,)
         if key not in self._tasks:
             if self.draft_model is not None:
-                from .speculative import SpeculativeDecodingTask
-
                 self._tasks[key] = SpeculativeDecodingTask(
                     self.model, self.draft_model, self.options, draft_len=self.draft_len
                 )
@@ -195,55 +194,34 @@ class ContinuousBatcher:
                 "self cache) is not implemented for the slot cache"
             )
         if draft_model is not None:
-            if draft_model.dims.n_vocab != model.dims.n_vocab:
-                raise ValueError("draft and verifier must share the vocabulary")
-            if draft_model.dims.n_mels != model.dims.n_mels:
-                raise ValueError("draft and verifier must share the mel frontend")
+            check_draft(model, draft_model)
         self.slots = slots
         self.chunk = chunk
         self.drain_chunk = drain_chunk if drain_chunk is not None else 4 * chunk
         self.stop_on_finish = stop_on_finish
         self.pipeline = pipeline
-        # DecodingTask's option plumbing: initial tokens, filters, max_len
+        # the decode set-up (the verifier's decode copy, caches, prefill,
+        # first token) and the option plumbing (initial tokens, filters)
         self._task = DecodingTask(model, self.options)
-        self._dtype = self._task.compute_dtype
-        self._quantize = self.options.quantize == "int8"
-        K = draft_len if draft_model is not None else 0
-        self._cache_len = self._task.max_len + K
+        # a speculative slot's K draft slots past max_len
+        self._k = K = draft_len if draft_model is not None else 0
         # one column past the last write: a cap-finished row's no-op write
         # (K+1 EOTs at offset max_len) stays off its last token
         self._buf_w = self._task.max_len + K + 1
         self._tokens_a_step = K + 1  # the most a step (a round) gives a slot
-        self._round = None
+        self._round = self._params_d = None
         if draft_model is not None:
-            from .speculative import make_spec_round
-
             self._round = make_spec_round(model.dims, draft_model.dims, self._task.filter_cfg,
-                                          self._task.tokenizer.eot, K, self._dtype)
-        self._params = None
-        self._params_d = None
+                                          self._task.tokenizer.eot, K, self._task.compute_dtype)
+            self._params_d = draft_params(self._task, draft_model)  # the draft's decode copy
         self._state: Optional[State] = None
 
-    # -- weights, prefill and state ------------------------------------------
-
-    def _prep(self):
-        if self._params is None:
-            self._params = prepare_decode_params(self.model, self._dtype, self._quantize)
-            if self.draft_model is not None:
-                self._params_d = prepare_decode_params(self.draft_model, self._dtype,
-                                                       self._quantize)
-        return self._params
-
-    def _cache(self, params, model, mel: torch.Tensor, init: torch.Tensor):
-        feats = _features(model, mel, self._dtype)
-        cache = init_cache(params, model.dims, feats, max_len=self._cache_len, dtype=self._dtype,
-                           quantize=self._quantize)
-        return decoder_apply(params, model.dims, init, cache=cache, offset=0, dtype=self._dtype)
+    # -- prefill and state ----------------------------------------------------
 
     def _prefill(self, reqs: Sequence[Tuple[object, Optional[int]]]) -> State:
         """Prefill (wave or mel, max_tokens) requests together: a k-row state
         with its first token chosen."""
-        task, dev, eot = self._task, self.device, self._task.tokenizer.eot
+        task, dev = self._task, self.device
         n_mels = self.model.dims.n_mels
         k = len(reqs)
         mels: Dict[int, torch.Tensor] = {
@@ -256,47 +234,30 @@ class ContinuousBatcher:
             wmel = log_mel_spectrogram(np.stack([w for _, w in waves]), n_mels=n_mels, device=dev)
             mels.update({i: wmel[j] for j, (i, _) in enumerate(waves)})
         mel = torch.stack([mels[i] for i in range(k)])
-        init_len = len(task.initial_tokens)
         init = torch.tensor([task.initial_tokens] * k, dtype=torch.long, device=dev)
         caps = [task.max_len if mt is None else min(task.sample_begin + int(mt), task.max_len)
                 for _, mt in reqs]
         caps = torch.tensor(caps, dtype=torch.long, device=dev)
-        params = self._prep()
-        logits, cache_v = self._cache(params, self.model, mel, init)
+        dtype = task.compute_dtype
+        logits, cache_v = task.prefill(task.params, _features(self.model, mel, dtype), init,
+                                       extra_len=self._k)
         rows: State = {"cache_v": cache_v}
         if self.draft_model is not None:
-            rows["cache_d"] = self._cache(self._params_d, self.draft_model, mel, init)[1]
-        no_speech = task.tokenizer.no_speech
-        if no_speech is not None:
-            nsp = torch.softmax(logits[:, task.sot_index].float(), dim=-1)[:, no_speech]
-        else:
-            nsp = torch.full((k,), float("nan"), device=dev)
-        tokens = torch.full((k, self._buf_w), eot, dtype=torch.long, device=dev)
-        tokens[:, :init_len] = init
-        flt = _apply_filters(task.filter_cfg, logits[:, -1].float(), tokens, init_len)
-        t0 = flt.argmax(dim=-1)
-        tokens[:, init_len] = t0
-        rows.update(
-            tokens=tokens,
-            lens=torch.full((k,), init_len + 1, dtype=torch.long, device=dev),
-            caps=caps,
-            finished=(t0 == eot) | (init_len + 1 >= caps),
-            sum_logprobs=torch.log_softmax(flt, dim=-1).gather(1, t0[:, None])[:, 0],
-            no_speech_probs=nsp,
-        )
+            rows["cache_d"] = task.prefill(self._params_d, _features(self.draft_model, mel, dtype),
+                                           init, extra_len=self._k)[1]
+        nsp = task.no_speech_probs(logits)
+        rows.update(task.first_tokens(logits, init, self._buf_w, caps), no_speech_probs=nsp)
         return rows
 
     def _empty_state(self, slots: int) -> State:
         """Idle slots: finished, length 2 (a speculative round reads
         positions n-2 and n-1), caches of silent audio features."""
         task, dev = self._task, self.device
-        params = self._prep()
 
-        def cache(p, model):
-            d = model.dims
+        def cache(params):
+            d = params.dims
             feats = torch.zeros((slots, d.n_audio_ctx, d.n_audio_state), device=dev)
-            return init_cache(p, d, feats, max_len=self._cache_len, dtype=self._dtype,
-                              quantize=self._quantize)
+            return task.new_cache(params, feats, extra_len=self._k)
 
         state: State = {
             "tokens": torch.full((slots, self._buf_w), task.tokenizer.eot, dtype=torch.long,
@@ -306,10 +267,10 @@ class ContinuousBatcher:
             "finished": torch.ones((slots,), dtype=torch.bool, device=dev),
             "sum_logprobs": torch.zeros((slots,), device=dev),
             "no_speech_probs": torch.zeros((slots,), device=dev),
-            "cache_v": cache(params, self.model),
+            "cache_v": cache(task.params),
         }
         if self.draft_model is not None:
-            state["cache_d"] = cache(self._params_d, self.draft_model)
+            state["cache_d"] = cache(self._params_d)
         return state
 
     def _copy_rows(self, dst: State, dst_idx: Sequence[int], src: State,
@@ -331,16 +292,16 @@ class ContinuousBatcher:
         """One greedy token for every slot (a speculative round with a
         draft), in place; finished slots are no-ops."""
         with profiling.span("serve.step"):
-            if self._round is not None:
-                self._round(self._params, self._params_d, s)
-                return
             task = self._task
+            if self._round is not None:
+                self._round(task.params, self._params_d, s)
+                return
             tokens, n = s["tokens"], s["lens"]
             active = ~s["finished"]
             last = tokens.gather(1, (n - 1)[:, None])
             logits, s["cache_v"] = decoder_apply(
-                self._params, self.model.dims, last, cache=s["cache_v"],
-                offset=(n - 1).to(torch.int32), dtype=self._dtype)
+                task.params, self.model.dims, last, cache=s["cache_v"],
+                offset=(n - 1).to(torch.int32), dtype=task.compute_dtype)
             flt = _apply_filters(task.filter_cfg, logits[:, -1].float(), tokens, n)
             nxt = flt.argmax(dim=-1)
             lp = torch.log_softmax(flt, dim=-1).gather(1, nxt[:, None])[:, 0]
@@ -461,7 +422,6 @@ class ContinuousBatcher:
             iters = max(1, -(-tokens // (self.draft_len + 1)))
         else:
             iters = tokens
-        self._prep()
         self._advance(self._state, iters, self.stop_on_finish and queued)
         self._poll_n += 1
         return (self._poll_n - 1, self._snapshot())

@@ -49,7 +49,7 @@ from .decoding import (
     _FilterConfig,
 )
 from .models.dims import ModelDimensions
-from .models.whisper import decoder_apply, init_cache, prepare_decode_params
+from .models.whisper import decoder_apply, prepare_decode_params
 
 if TYPE_CHECKING:
     from .models.whisper import Whisper
@@ -61,6 +61,20 @@ def _write_at(buf: torch.Tensor, start: torch.Tensor, vals: torch.Tensor) -> Non
     """``buf[i, start[i] + j] = vals[i, j]``, in place."""
     idx = start.long()[:, None] + torch.arange(vals.shape[1], device=buf.device)[None]
     buf.scatter_(1, idx, vals)
+
+
+def check_draft(model: "Whisper", draft_model: "Whisper") -> None:
+    """Raise unless ``draft_model`` can draft for ``model``."""
+    if draft_model.dims.n_vocab != model.dims.n_vocab:
+        raise ValueError("draft and verifier must share the vocabulary")
+    if draft_model.dims.n_mels != model.dims.n_mels:
+        raise ValueError("draft and verifier must share the mel frontend")
+
+
+def draft_params(task: DecodingTask, draft_model: "Whisper") -> "Whisper":
+    """The draft's decode-time weights, prepared as ``task``'s verifier copy."""
+    return prepare_decode_params(draft_model, task.compute_dtype,
+                                 quantize=task.options.quantize is not None)
 
 
 def make_spec_round(dims_v: ModelDimensions, dims_d: ModelDimensions, cfg: _FilterConfig,
@@ -155,10 +169,7 @@ class SpeculativeDecodingTask(DecodingTask):
             raise ValueError("speculative decoding is greedy-only")
         if options.temperature != 0:
             raise ValueError("speculative decoding requires temperature=0")
-        if draft_model.dims.n_vocab != model.dims.n_vocab:
-            raise ValueError("draft and verifier must share the vocabulary")
-        if draft_model.dims.n_mels != model.dims.n_mels:
-            raise ValueError("draft and verifier must share the mel frontend")
+        check_draft(model, draft_model)
         if model.extras.add_gated_x_attn:
             raise ValueError("speculative decoding does not take conditioning streams")
         if draft_len < 1:
@@ -166,61 +177,29 @@ class SpeculativeDecodingTask(DecodingTask):
         self.draft_model = draft_model
         self.draft_len = int(draft_len)
         self.last_stats: Optional[dict] = None
-        self._params_d = None
+        self.params_d = draft_params(self, draft_model)  # the draft's decode-time weights
         self._draft_mel: Optional[torch.Tensor] = None
-
-    @property
-    def params_d(self) -> "Whisper":
-        """The draft's decode-time weights, prepared as the verifier's."""
-        if self._params_d is None:
-            self._params_d = prepare_decode_params(
-                self.draft_model, self.compute_dtype, quantize=self.options.quantize is not None
-            )
-        return self._params_d
 
     @torch.no_grad()
     def _main_loop(self, audio_features: torch.Tensor, init_tokens: torch.Tensor,
                    xt: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         dims_v, dims_d, dtype = self.model.dims, self.draft_model.dims, self.compute_dtype
         K, max_len, eot = self.draft_len, self.max_len, self.tokenizer.eot
-        B, init_len = init_tokens.shape
+        B = init_tokens.shape[0]
         dev = audio_features.device
-        quantize = self.options.quantize
-        kw = dict(max_len=max_len + K, dtype=dtype, quantize=quantize is not None,
-                  quantize_self=quantize == "int8kv")
         params_v, params_d = self.params, self.params_d
         feats_d = _features(self.draft_model, self._draft_mel.to(dev), dtype)
-        cache_v = init_cache(params_v, dims_v, audio_features, **kw)
-        cache_d = init_cache(params_d, dims_d, feats_d, **kw)
-        logits_v, cache_v = decoder_apply(params_v, dims_v, init_tokens, cache=cache_v,
-                                          offset=0, dtype=dtype)
-        _, cache_d = decoder_apply(params_d, dims_d, init_tokens, cache=cache_d, offset=0,
-                                   dtype=dtype)
-        no_speech = self.tokenizer.no_speech
-        if no_speech is not None:
-            no_speech_probs = torch.softmax(logits_v[:, self.sot_index].float(), dim=-1)[:, no_speech]
-        else:
-            no_speech_probs = torch.full((B,), float("nan"), device=dev)
+        logits_v, cache_v = self.prefill(params_v, audio_features, init_tokens, extra_len=K)
+        _, cache_d = self.prefill(params_d, feats_d, init_tokens, extra_len=K)
+        no_speech_probs = self.no_speech_probs(logits_v)
 
         # width max_len + K + 1: a round writes K+1 tokens at n <= max_len
-        tokens = torch.full((B, max_len + K + 1), eot, dtype=torch.long, device=dev)
-        tokens[:, :init_len] = init_tokens
-        flt = _apply_filters(self.filter_cfg, logits_v[:, -1].float(), tokens, init_len)
-        t0 = flt.argmax(dim=-1)
-        lp0 = torch.log_softmax(flt, dim=-1).gather(1, t0[:, None])[:, 0]
-        tokens[:, init_len] = t0
-        state: State = {
-            "tokens": tokens,
-            "lens": torch.full((B,), init_len + 1, dtype=torch.long, device=dev),
-            "caps": torch.full((B,), max_len, dtype=torch.long, device=dev),
-            "finished": t0 == eot,
-            "sum_logprobs": lp0,
-            "cache_v": cache_v,
-            "cache_d": cache_d,
-            "accepted": torch.zeros((), dtype=torch.long, device=dev),
-            "rounds": torch.zeros((), dtype=torch.long, device=dev),
-            "row_rounds": torch.zeros((), dtype=torch.long, device=dev),
-        }
+        state: State = self.first_tokens(
+            logits_v, init_tokens, max_len + K + 1,
+            torch.full((B,), max_len, dtype=torch.long, device=dev))
+        state.update(cache_v=cache_v, cache_d=cache_d)
+        state.update({k: torch.zeros((), dtype=torch.long, device=dev)
+                      for k in ("accepted", "rounds", "row_rounds")})
         round_fn = make_spec_round(dims_v, dims_d, self.filter_cfg, eot, K, dtype)
         while bool((~state["finished"] & (state["lens"] < state["caps"])).any()):
             state = round_fn(params_v, params_d, state)
