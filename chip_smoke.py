@@ -26,7 +26,17 @@ each printing one JSON line:
    SDPA's device time per call from the profiler, with L2 flushed by a 64
    MB read before each call (the decode loop's case; the kernels line's
    ``ms`` and ``library_ms``) and warm; their back-to-back event times and
-   host time per call; the plain version's time.
+   host time per call; the plain version's time. Then the kernel read
+   through a beam row table (``decode_attn.beam_rows``) at beam15's shape
+   (120 rows, D 768, 12 heads, T_max 132) and the AV cell's (120 rows, D
+   1280, 20 heads, T_max 68), and at 8 rows of each (the latency mode), bf16
+   and fp32, offsets from 3 to T_max - 1, random ancestry tables: equal bit
+   for bit to the kernel over the cache gathered by the table, within the
+   tolerance of the plain version through the table; the identity table
+   gives the kernel's bits without one; the table ignored (a planted fault)
+   must fail that tolerance. At 120 rows in bf16 and the offset of a
+   decode's mean position, the table's launch time beside the kernel's
+   without one (profiler, L2 flushed and warm; line ``decode_attn_rows``).
 3b. xattn_step: the cached cross-attention kernel (``csrc/xattn_step.cu``)
    against its plain version in bf16 at the AV beam step's audio slab (8
    slab rows x 20 heads x 15 beams over 1,500 keys) and gated slab (448
@@ -517,6 +527,80 @@ def phase_decode_attn(torch, decode_attn, gen):
             rows.append(row)
     emit({"phase": "decode_attn", "cases": rows})
     return results[8], results[BATCH * BEAM]
+
+
+# beam15's self cache and the AV cell's: (rows, D, heads, T_max, the mean
+# written position of a decode: the offset of the timed launch)
+ROW_TABLE_SHAPES = {"beam15": (BATCH * BEAM, 768, 12, 132, 66),
+                    "av": (BATCH * BEAM, 1280, 20, 68, 36)}
+
+
+def phase_decode_attn_rows(torch, decode_attn, gen):
+    """The decode-attention kernel read through a beam row table."""
+    rows_out = []
+    flush = torch.zeros(32 << 20, dtype=torch.bfloat16, device="cuda")
+    for name, (b_full, d, n_head, t_max, t_off) in ROW_TABLE_SHAPES.items():
+        for b in (b_full, 8):
+            for dtype_name, tol in (("bfloat16", 2e-2), ("float32", 1e-5)):
+                dtype = getattr(torch, dtype_name)
+                worst = fault = 0.0
+                own = torch.arange(b, device="cuda", dtype=torch.int32)[:, None]
+                pos = torch.arange(t_max, device="cuda")[None]
+                offsets = sorted({3, 4, 31, 32, 33, t_off, t_max // 2, t_max - 2, t_max - 1})
+                for off in offsets:
+                    q, kn, vn = (torch.randn(b, 1, d, generator=gen, device="cuda").to(dtype)
+                                 for _ in range(3))
+                    kc = (torch.randn(b, t_max, d, generator=gen, device="cuda") * 0.5).to(dtype)
+                    vc = (torch.randn(b, t_max, d, generator=gen, device="cuda") * 0.5).to(dtype)
+                    table = torch.randint(0, b, (b, t_max), generator=gen, device="cuda",
+                                          dtype=torch.int32)
+                    src = torch.where(pos < off, table.long(), own.long())
+                    kg, vg = kc[src, pos], vc[src, pos]  # the cache moved by the table
+                    kp, vp = kc.clone(), vc.clone()
+                    direct, _, _ = decode_attn.fused_step(q, kn, vn, kg, vg, off, n_head)
+                    with decode_attn.beam_rows(table):
+                        got, _, _ = decode_attn.fused_step(q, kn, vn, kc, vc, off, n_head)
+                        plain = decode_attn.fused_step_plain(q, kn, vn, kp, vp, off, n_head)
+                    ignored, _, _ = decode_attn.fused_step(q, kn, vn, kp.clone(), vp.clone(),
+                                                           off, n_head)
+                    ident = decode_attn.fused_step(q, kn, vn, kp.clone(), vp.clone(), off,
+                                                   n_head)[0]
+                    with decode_attn.beam_rows(own.expand(b, t_max).contiguous()):
+                        ident_rows = decode_attn.fused_step(q, kn, vn, kp.clone(), vp.clone(),
+                                                            off, n_head)[0]
+                    err, fault_err = max_err(got, plain), max_err(ignored, plain)
+                    worst, fault = max(worst, err), max(fault, fault_err)
+                    if not (torch.equal(got, direct) and torch.equal(ident, ident_rows)
+                            and torch.equal(kc, kp) and torch.equal(vc, vp) and err <= tol
+                            and fault_err > tol):
+                        raise AssertionError(
+                            f"decode_attn rows {name} b={b} {dtype_name} offset {off}: "
+                            f"equal to the gathered cache {torch.equal(got, direct)}, identity "
+                            f"{torch.equal(ident, ident_rows)}, caches "
+                            f"{torch.equal(kc, kp) and torch.equal(vc, vp)}, max |err| {err} "
+                            f"(tol {tol}), table ignored {fault_err} (must exceed tol)")
+                row = {"shape": name, "rows": b, "d": d, "heads": n_head, "t_max": t_max,
+                       "dtype": dtype_name, "latency_mode": b == 8, "offsets": offsets,
+                       "max_abs_err": worst, "table_ignored_max_abs_err": fault, "tol": tol}
+                if b == b_full and dtype_name == "bfloat16":
+                    table = torch.randint(0, b, (b, t_max), generator=gen, device="cuda",
+                                          dtype=torch.int32)
+
+                    def step(rows=None):
+                        with decode_attn.beam_rows(rows):
+                            decode_attn.fused_step(q, kn, vn, kc, vc, t_off, n_head)
+
+                    row["offset"] = t_off
+                    row["direct_ms"] = _profiled_ms(torch, step, 100, "decode_attn", flush)
+                    row["indirect_ms"] = _profiled_ms(torch, lambda: step(table), 100,
+                                                      "decode_attn", flush)
+                    row["direct_warm_ms"] = _profiled_ms(torch, step, 200, "decode_attn")
+                    row["indirect_warm_ms"] = _profiled_ms(torch, lambda: step(table), 200,
+                                                           "decode_attn")
+                    row["direct_host_ms"] = host_ms(torch, step, 200)
+                    row["indirect_host_ms"] = host_ms(torch, lambda: step(table), 200)
+                rows_out.append(row)
+    emit({"phase": "decode_attn_rows", "cases": rows_out})
 
 
 # The kernel against its plain version (``attention.xa_qkv_plain``): the
@@ -3116,6 +3200,7 @@ def main() -> int:
     # -- 2, 3. kernels against their plain versions ---------------------------
     fl = phase_flash64(torch, flash64, gen)
     da8, da120 = phase_decode_attn(torch, decode_attn, gen)
+    phase_decode_attn_rows(torch, decode_attn, gen)
     xa = phase_xattn_step(torch, xattn_step, gen)
 
     # -- 4. end to end ----------------------------------------------------------

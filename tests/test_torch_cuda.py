@@ -337,13 +337,59 @@ def test_decode_attn_smem_bytes_match_the_kernel(gen):
 
     fn = cuda_build.load("decode_attn").wf_decode_attn_smem_bytes
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4
+    fn.argtypes = [ctypes.c_int] * 5
     for t_max in (1, 40, 448, 1500, 20000):
         for dh in (32, 64, 128):
             for item in (2, 4):
                 for latency in (False, True):
-                    assert (fn(t_max, dh, item, int(latency))
-                            == decode_attn.smem_bytes(t_max, dh, item, latency))
+                    for indirect in (False, True):
+                        assert (fn(t_max, dh, item, int(latency), int(indirect))
+                                == decode_attn.smem_bytes(t_max, dh, item, latency, indirect))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,n_head,t_max", [
+    (120, 768, 12, 132), (120, 1280, 20, 68), (8, 768, 12, 132), (8, 1280, 20, 68),
+    (40, 256, 8, 448), (120, 512, 4, 448),
+], ids=["beam15", "av", "beam15-latency", "av-latency", "dh32", "dh128"])
+def test_decode_attn_through_row_table(gen, dtype, rows, d, n_head, t_max):
+    """The kernel read through a beam row table (``decode_attn.beam_rows``)
+    at beam15's and the AV cell's self caches (120 rows: the throughput
+    mode; 8: the latency mode) and at d_head 32 and 128, offsets from 3 to
+    t_max - 1, scalar, a device scalar and per row: bit-equal to the kernel
+    over the cache gathered by the table, within TOL of the plain version
+    through the table, the same cache writes; the identity table gives the
+    kernel's bits without one, and the table ignored fails TOL."""
+    own = torch.arange(rows, device="cuda", dtype=torch.int32)[:, None]
+    pos = torch.arange(t_max, device="cuda")[None]
+    per_row = torch.randint(3, t_max, (rows,), generator=gen, device="cuda", dtype=torch.int32)
+    device_scalar = torch.tensor([t_max // 3], dtype=torch.int32, device="cuda")
+    for off in (3, 31, 32, 33, 64, t_max // 2, t_max - 1, device_scalar, per_row):
+        q, kn, vn = (torch.randn(rows, 1, d, generator=gen, device="cuda").to(dtype)
+                     for _ in range(3))
+        kc = (torch.randn(rows, t_max, d, generator=gen, device="cuda") * 0.5).to(dtype)
+        vc = (torch.randn(rows, t_max, d, generator=gen, device="cuda") * 0.5).to(dtype)
+        offs = decode_attn._row_offsets(off, rows, "cuda")
+        table = torch.randint(0, rows, (rows, t_max), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        # no entry names a position its row writes in the same launch
+        table = torch.where(offs[table.long()] == pos, own, table)
+        src = torch.where(pos < offs[:, None], table.long(), own.long())
+        kg, vg = kc[src, pos], vc[src, pos]
+        kp, vp = kc.clone(), vc.clone()
+        direct = decode_attn.fused_step(q, kn, vn, kg, vg, off, n_head)[0]
+        with decode_attn.beam_rows(table):
+            got = decode_attn.fused_step(q, kn, vn, kc, vc, off, n_head)[0]
+            ref = decode_attn.fused_step_plain(q, kn, vn, kp, vp, off, n_head)
+        assert torch.equal(got, direct)
+        assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+        assert torch.equal(kc, kp) and torch.equal(vc, vp)
+        ignored = decode_attn.fused_step(q, kn, vn, kp.clone(), vp.clone(), off, n_head)[0]
+        assert (ignored.float() - ref.float()).abs().max().item() > TOL[dtype]
+        plain_rows = decode_attn.fused_step(q, kn, vn, kp.clone(), vp.clone(), off, n_head)[0]
+        with decode_attn.beam_rows(own.expand(rows, t_max).contiguous()):
+            identity = decode_attn.fused_step(q, kn, vn, kp.clone(), vp.clone(), off, n_head)[0]
+        assert torch.equal(identity, plain_rows)
 
 
 def test_decode_attn_kernel_refuses_what_it_cannot_take(gen):

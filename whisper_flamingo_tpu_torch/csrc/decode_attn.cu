@@ -44,6 +44,18 @@
 //   - V sum: each thread sums its piece over its rows in fp32; the row
 //     groups of a warp combine by shuffles and the warps once through
 //     shared memory.
+//
+// Beam search (the INDIRECT instantiation): a beam's history is spread
+// over the physical rows that wrote it, and an int32 table rows (B, t_max)
+// names, for each position p < offset of row b, the row that holds it
+// (FasterTransformer's cache indirection). The decode loop reorders only
+// that table after each beam selection, never the cache. The block stages
+// its table row (positions < offset) in shared memory once the offset is
+// known, then loads position p from row rows[b, p]; the new K/V row is
+// written into its own row b at the offset, as without a table. The loads
+// are the same bytes in the same order, so the output is the direct
+// kernel's on a cache gathered by the table, bit for bit. The direct
+// instantiation reads no table.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,18 +159,20 @@ struct Mode {
 };
 
 template <bool LATENCY>
-constexpr int smem_bytes(int t_max, int dh, int item) {
+constexpr int smem_bytes(int t_max, int dh, int item, bool indirect) {
   return (2 + Mode<LATENCY>::STAGES) * Mode<LATENCY>::CHUNK + 2 * dh * item +
-         4 * (Mode<LATENCY>::NW * dh + t_max);
+         4 * (Mode<LATENCY>::NW * dh + t_max) + (indirect ? 4 * t_max : 0);
 }
 
 // q/kn/vn/out: (B, 1, D); kc/vc: (B, t_max, D) contiguous, rows 16-byte
 // aligned (the wrapper checks). DH is the head width (32, 64 or 128).
-template <typename T, int DH, bool LATENCY>
+// INDIRECT: rows (B, t_max) int32, read at positions < offset only.
+template <typename T, int DH, bool LATENCY, bool INDIRECT>
 __global__ void __launch_bounds__(Mode<LATENCY>::NT, Mode<LATENCY>::MIN_BLOCKS)
     decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn,
     T* __restrict__ kc, T* __restrict__ vc, const int* __restrict__ offsets,
-    int off_stride, int off_scalar, T* __restrict__ out, int t_max, int d, float scale) {
+    int off_stride, int off_scalar, T* __restrict__ out, int t_max, int d, float scale,
+    const int* __restrict__ rows_of) {
   constexpr int NT = Mode<LATENCY>::NT, NW = Mode<LATENCY>::NW;
   constexpr int CHUNK = Mode<LATENCY>::CHUNK, STAGES = Mode<LATENCY>::STAGES;
   using S = Split<T, DH, NT, CHUNK>;
@@ -172,6 +186,7 @@ __global__ void __launch_bounds__(Mode<LATENCY>::NT, Mode<LATENCY>::MIN_BLOCKS)
   T* new_v = new_k + DH;
   float* part = reinterpret_cast<float*>(new_v + DH);  // (NW, DH) V sums
   float* logit = part + NW * DH;                       // (t_max) logits, then weights
+  int* tab = reinterpret_cast<int*>(logit + t_max);    // INDIRECT: (t_max) physical rows
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -182,17 +197,24 @@ __global__ void __launch_bounds__(Mode<LATENCY>::NT, Mode<LATENCY>::MIN_BLOCKS)
   const int64_t piece = li * E;
 
   // Rows [0, rows) of chunk c of a cache into dst by 16-byte cp.async,
-  // the new row `skip` left out.
+  // the new row `skip` left out; INDIRECT: position p from row tab[p].
   auto stage = [&](T* dst, const T* cache, int c, int rows, int skip) {
     for (int r = gi; r < rows; r += G)
-      if (c * P + r != skip)
-        cp_async16(dst + r * DH + piece, cache + slab + (int64_t)(c * P + r) * d + piece);
+      if (c * P + r != skip) {
+        const int p = c * P + r;
+        if constexpr (INDIRECT)
+          cp_async16(dst + r * DH + piece,
+                     cache + ((int64_t)tab[p] * t_max + p) * d + (int64_t)h * DH + piece);
+        else
+          cp_async16(dst + r * DH + piece, cache + slab + (int64_t)p * d + piece);
+      }
   };
 
   // What does not depend on the offset is read first: q's piece (scaled
   // in fp32), the new K (scaled in the source dtype, cast to the cache's)
-  // or V piece, and in latency mode with device offsets chunk 0 of K and V.
-  const bool speculate = LATENCY && offsets != nullptr;
+  // or V piece, and in latency mode with device offsets chunk 0 of K and V
+  // (not through a table: its entries past the offset are not defined).
+  const bool speculate = LATENCY && !INDIRECT && offsets != nullptr;
   float qf[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) qf[e] = to_f(q[tok + piece + e]) * scale;
@@ -222,6 +244,10 @@ __global__ void __launch_bounds__(Mode<LATENCY>::NT, Mode<LATENCY>::MIN_BLOCKS)
         *reinterpret_cast<const uint4*>(fresh);
     *reinterpret_cast<uint4*>((tid < L ? new_k : new_v) + piece) =
         *reinterpret_cast<const uint4*>(fresh);
+  }
+  if constexpr (INDIRECT) {  // the table row, before any load goes through it
+    for (int j = tid; j < off; j += NT) tab[j] = rows_of[(int64_t)b * t_max + j];
+    __syncthreads();
   }
   if (!speculate) {
     stage(head_k, kc, 0, min(P, n), off);
@@ -346,63 +372,74 @@ struct Args {
   void* out;
   int batch, t_max, d;
   float scale;
+  const int* rows;
 };
 
-template <typename T, int DH, bool LATENCY>
+template <typename T, int DH, bool LATENCY, bool INDIRECT>
 int launch_dh(const Args& a, cudaStream_t s) {
-  const int smem = smem_bytes<LATENCY>(a.t_max, DH, (int)sizeof(T));
-  auto kernel = decode_attn_kernel<T, DH, LATENCY>;
+  const int smem = smem_bytes<LATENCY>(a.t_max, DH, (int)sizeof(T), INDIRECT);
+  auto kernel = decode_attn_kernel<T, DH, LATENCY, INDIRECT>;
   if (smem > SMEM_DEFAULT)  // long caches only (t_max above ~600)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   kernel<<<dim3(a.d / DH, a.batch), Mode<LATENCY>::NT, smem, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kn), static_cast<const T*>(a.vn),
       static_cast<T*>(a.kc), static_cast<T*>(a.vc), a.offsets, a.off_stride, a.off_scalar,
-      static_cast<T*>(a.out), a.t_max, a.d, a.scale);
+      static_cast<T*>(a.out), a.t_max, a.d, a.scale, a.rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool LATENCY>
+template <typename T, bool LATENCY, bool INDIRECT>
 int launch(const Args& a, int n_head, cudaStream_t s) {
   switch (a.d / n_head) {
     case 32:
-      return launch_dh<T, 32, LATENCY>(a, s);
+      return launch_dh<T, 32, LATENCY, INDIRECT>(a, s);
     case 64:
-      return launch_dh<T, 64, LATENCY>(a, s);
+      return launch_dh<T, 64, LATENCY, INDIRECT>(a, s);
     case 128:
-      return launch_dh<T, 128, LATENCY>(a, s);
+      return launch_dh<T, 128, LATENCY, INDIRECT>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <bool INDIRECT>
+int launch_dtype(const Args& a, int n_head, int dtype, int latency, cudaStream_t s) {
+  if (dtype == 0)
+    return latency ? launch<float, true, INDIRECT>(a, n_head, s)
+                   : launch<float, false, INDIRECT>(a, n_head, s);
+  if (dtype == 1)
+    return latency ? launch<__nv_bfloat16, true, INDIRECT>(a, n_head, s)
+                   : launch<__nv_bfloat16, false, INDIRECT>(a, n_head, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Dynamic shared memory of one launch, in bytes: chunk 0 of K and V, the
-// ring, the new row, the V sum's per-warp partials and the logits. The
-// wrapper computes the same in Python (ops/decode_attn.py smem_bytes); the
-// card tests hold the two equal.
-extern "C" int wf_decode_attn_smem_bytes(int t_max, int dh, int item, int latency) {
-  return latency ? smem_bytes<true>(t_max, dh, item) : smem_bytes<false>(t_max, dh, item);
+// ring, the new row, the V sum's per-warp partials, the logits and, with a
+// row table, its row. The wrapper computes the same in Python
+// (ops/decode_attn.py smem_bytes); the card tests hold the two equal.
+extern "C" int wf_decode_attn_smem_bytes(int t_max, int dh, int item, int latency, int indirect) {
+  return latency ? smem_bytes<true>(t_max, dh, item, indirect)
+                 : smem_bytes<false>(t_max, dh, item, indirect);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. `offsets` is a device int32 array read
 // at b * off_stride (off_stride 0: one offset for every row), or null: then
 // every row's offset is `off_scalar`. d_head = d / n_head must be 32, 64
 // or 128. latency: 1 for the latency mode (a grid of at most two blocks
-// per SM), 0 for the throughput mode. Returns the launch's
-// cudaGetLastError() (0 when the kernel was accepted).
+// per SM), 0 for the throughput mode. `rows`: null, or the beam search's
+// device int32 (B, t_max) row table; entry (b, p) for p < b's offset names
+// a row whose position p is written and is not written by this launch.
+// Returns the launch's cudaGetLastError() (0 when the kernel was accepted).
 extern "C" int wf_decode_attn_step(const void* q, const void* kn, const void* vn, void* kc,
                                    void* vc, const void* offsets, int off_stride,
                                    int off_scalar, void* out, int batch, int t_max, int d,
                                    int n_head, float scale, int dtype, int latency,
-                                   void* stream) {
-  const Args a{q,          kn,  vn,    kc, vc, static_cast<const int*>(offsets), off_stride,
-               off_scalar, out, batch, t_max, d, scale};
+                                   const void* rows, void* stream) {
+  const Args a{q,   kn,    vn,    kc, vc, static_cast<const int*>(offsets), off_stride, off_scalar,
+               out, batch, t_max, d,  scale, static_cast<const int*>(rows)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return latency ? launch<float, true>(a, n_head, s) : launch<float, false>(a, n_head, s);
-  if (dtype == 1)
-    return latency ? launch<__nv_bfloat16, true>(a, n_head, s)
-                   : launch<__nv_bfloat16, false>(a, n_head, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return a.rows != nullptr ? launch_dtype<true>(a, n_head, dtype, latency, s)
+                           : launch_dtype<false>(a, n_head, dtype, latency, s);
 }

@@ -11,8 +11,12 @@ patience rule), run on the device.
 The JAX ``while_loop`` becomes a Python loop over decoder steps. Each step
 reads one flag back from the device (has every row finished?), so the loop
 stops where the JAX loop stops; the bookkeeping stays on the device. The
-beam's self-cache reorder (with the int8kv scales) is an ``index_select``
-over the written prefix. The incremental steps run the decode-attention
+beam's self cache is never reordered where the steps attend through the
+decode-attention kernel: each row's history is read through an int32 row
+table (``ops.decode_attn.beam_rows``), and only the table's written prefix
+is reordered; the int8kv self cache (with its scales), whose steps take the
+plain attention, is reordered by an ``index_select`` over the written
+prefix. The incremental steps run the decode-attention
 kernel (not under int8kv, as in JAX), the encoder the flash64 kernel. On
 the card the incremental step replays CUDA graphs between the
 decode-attention launches (``models.whisper.StepGraphs``, one holder a
@@ -59,7 +63,9 @@ from .models.whisper import (
     encoder_apply,
     init_cache,
     prepare_decode_params,
+    self_step_kernel,
 )
+from .ops import decode_attn
 from .tokenizer import Tokenizer, get_tokenizer
 from .utils import compression_ratio
 
@@ -467,6 +473,13 @@ class DecodingTask:
         self_keys = [k for k in ("k", "v", "k_s", "v_s") if k in cache]
         for key in self_keys:
             cache[key] = cache[key].repeat_interleave(G, dim=1)
+        # beam search through the decode-attention kernel reorders a table
+        # of the rows that hold each position, not the cache: a row's next
+        # write lands in its own row, at a position no entry points to yet
+        rows = None
+        if use_beam and self_step_kernel(cache):
+            t_max = cache["k"].shape[-2]
+            rows = torch.arange(n_batch, dtype=torch.int32, device=dev)[:, None].repeat(1, t_max)
         last_logits = logits[:, -1].float().repeat_interleave(G, dim=0)
         tokens = torch.full((n_batch, max_len + 1), eot, dtype=torch.long, device=dev)
         tokens[:, :init_len] = init_tokens.repeat_interleave(G, dim=0)
@@ -539,10 +552,16 @@ class DecodingTask:
                     tokens = tokens.index_select(0, src_global)
                     tokens[:, cur_len] = sel_token.reshape(-1)
                     sum_logprobs = sel_scores.reshape(-1)
-                    # the surviving beams' self cache: only the written prefix matters
-                    for key in self_keys:
-                        pre = cache[key][:, :, :cur_len]
-                        pre.copy_(pre.index_select(1, src_global))
+                    # the surviving beams' history: only the written prefix matters
+                    if rows is not None:
+                        pre = rows[:, :cur_len]
+                        pre.copy_(pre.index_select(0, src_global))
+                        profiling.count("decode.reorder_indirect")
+                    else:
+                        for key in self_keys:
+                            pre = cache[key][:, :, :cur_len]
+                            pre.copy_(pre.index_select(1, src_global))
+                        profiling.count("decode.reorder_copied")
                     completed = (fin_count >= C).all()
                 else:
                     if gen is None:
@@ -566,7 +585,7 @@ class DecodingTask:
                     done = bool(completed)
                 if done:
                     break
-                with profiling.span("decode.forward"):
+                with profiling.span("decode.forward"), decode_attn.beam_rows(rows):
                     new_logits, cache = decoder_apply(
                         params, dims, tokens[:, cur_len - 1: cur_len], cache=cache,
                         offset=cur_len - 1, dtype=dtype, sequential_xt=sequential_xt,

@@ -56,7 +56,8 @@ Left out, each a TPU workaround or a later slice: ``CACHE_LOOP`` and
 ``SELECTOR_SELF`` (the selector form of many-row attention,
 ``cached_selector_attention``, computes what ``cached_qkv_attention``
 computes), the in-loop one-hot beam reorder (``row_perm``; the decode loop
-reorders the self cache with ``index_select``), the transposed
+reorders a row table that the decode-attention kernel reads the self cache
+through, or under int8kv the cache with ``index_select``), the transposed
 (B, H, Dh, T) slabs, the fused QKV projection (int8 quantizes q, k and v
 apart: per-output-channel scales give the fused weight's int8 values and
 scales).
@@ -673,6 +674,12 @@ def lm_head_weight(params: Whisper, dtype: torch.dtype) -> torch.Tensor:
     return dec.token_embedding.weight.to(dtype).float()
 
 
+def self_step_kernel(cache: Cache) -> bool:
+    """Whether a one-token step over ``cache`` attends through
+    :func:`..ops.decode_attn.fused_step`: every self cache but int8kv's."""
+    return "k_s" not in cache
+
+
 def decoder_apply(
     params: Whisper, dims: ModelDimensions, tokens: torch.Tensor,
     audio_features: Optional[torch.Tensor] = None, *,
@@ -769,7 +776,7 @@ def decoder_apply(
     else:
         scale = (dims.n_text_state // n_head) ** -0.25
         have_xt_kv = use_gated and "xt_k" in cache
-        quantized_self = "k_s" in cache
+        quantized_self = not self_step_kernel(cache)
         use_kernel = T == 1 and not quantized_self  # an int offset goes to it by value
         mask = None if use_kernel else cached_causal_mask(
             T, cache["k"].shape[-2], offset, device=dev

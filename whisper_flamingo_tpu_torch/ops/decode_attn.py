@@ -23,18 +23,49 @@ See ``csrc/decode_attn.cu`` for the design and what bounds it.
 kernel by value), or a device int32 tensor of shape (), (1,) (one offset
 for every row) or (B,) (one per row), which the kernel reads on the
 device: a step needs no host sync either way.
+
+Beam search reads the self cache through a row table (:func:`beam_rows`):
+inside its block, position ``p < offset`` of row ``b`` is read from row
+``rows[b, p]`` of the cache, so the decode loop reorders the table after
+each beam selection and never the cache. The new K/V row still goes into
+row ``b`` at ``offset``. Without a table the kernel reads none.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
-from typing import Tuple, Union
+from typing import Iterator, Optional, Tuple, Union
 
 import torch
 
 from . import cuda_build
 
 Offset = Union[int, torch.Tensor]
+
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("decode_attn_rows", default=None)
+
+
+@contextlib.contextmanager
+def beam_rows(rows: Optional[torch.Tensor]) -> Iterator[None]:
+    """Read the self caches of every :func:`fused_step` (and
+    :func:`fused_step_plain`) in the block through ``rows``: an int32
+    (B, T_max) table, contiguous on the caches' device, whose entry
+    ``(b, p)`` names the row of the cache that holds position ``p`` of row
+    ``b``'s history. Entries at or past a row's offset are not read (the
+    row's own new K/V is). Each entry before the offset must name a row
+    whose position ``p`` is already written and is not written by the same
+    call (a lockstep offset guarantees it). ``None`` reads every row's own
+    slab, as outside the block."""
+    if rows is not None and (rows.dim() != 2 or rows.dtype != torch.int32
+                             or not rows.is_contiguous()):
+        raise ValueError("beam_rows: the table must be a contiguous int32 (B, T_max) tensor")
+    token = _ROWS.set(rows)
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
 
 
 def _row_offsets(offset: Offset, b: int, device) -> torch.Tensor:
@@ -55,17 +86,29 @@ def fused_step_plain(
     off = _row_offsets(offset, b, k_cache.device)
     k_cache[rows, off] = (k_raw[:, 0] * scale).to(k_cache.dtype)
     v_cache[rows, off] = v_raw[:, 0].to(v_cache.dtype)
+    pos = torch.arange(t_max, device=k_cache.device)[None, :]
+    table = _ROWS.get()
+    if table is not None:  # each row's history, gathered through the table
+        _check_table(table, b, t_max, k_cache)
+        src = torch.where(pos < off[:, None], table.long(), rows[:, None])
+        k_cache, v_cache = k_cache[src, pos], v_cache[src, pos]
 
     qs = q[:, 0].float() * scale  # (B, D), fp32
     prod = k_cache.float() * qs[:, None, :]  # (B, T, D) exact fp32 products
     logits = prod.view(b, t_max, n_head, dh).sum(-1)  # (B, T, H)
-    valid = torch.arange(t_max, device=k_cache.device)[None, :] <= off[:, None]
+    valid = pos <= off[:, None]
     logits = logits.masked_fill(~valid[:, :, None], float("-inf"))
     e = torch.exp(logits - logits.amax(dim=1, keepdim=True))
     w = e / e.sum(dim=1, keepdim=True)
     wl = w.to(q.dtype).float().repeat_interleave(dh, dim=-1)  # (B, T, D)
     out = (wl * v_cache.float()).sum(dim=1, keepdim=True)
     return out.to(q.dtype)
+
+
+def _check_table(table: torch.Tensor, b: int, t_max: int, k_cache: torch.Tensor) -> None:
+    if table.shape != (b, t_max) or table.device != k_cache.device:
+        raise ValueError(f"fused_step: a (B, T_max) = ({b}, {t_max}) row table on the "
+                         f"caches' device is needed, got {tuple(table.shape)} on {table.device}")
 
 
 # The kernel's two modes (csrc/decode_attn.cu): with at most two blocks (one
@@ -82,13 +125,14 @@ def latency_mode(blocks: int, sm_count: int) -> bool:
     return blocks <= 2 * sm_count
 
 
-def smem_bytes(t_max: int, d_head: int, item: int, latency: bool) -> int:
+def smem_bytes(t_max: int, d_head: int, item: int, latency: bool, indirect: bool = False) -> int:
     """Dynamic shared memory of one launch, in bytes (the C side's
     ``wf_decode_attn_smem_bytes``): chunk 0 of K and V and the ring, the
-    new K/V row, the V sum's partials (one per warp: 16 or 4) and the t_max
-    logits."""
+    new K/V row, the V sum's partials (one per warp: 16 or 4), the t_max
+    logits and, reading through a row table, its t_max entries."""
     chunk, stages, warps = (8192, 3, 16) if latency else (4096, 2, 4)
-    return (2 + stages) * chunk + 2 * d_head * item + 4 * (warps * d_head + t_max)
+    return ((2 + stages) * chunk + 2 * d_head * item + 4 * (warps * d_head + t_max)
+            + (4 * t_max if indirect else 0))
 
 
 def _kernel():
@@ -97,7 +141,7 @@ def _kernel():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [
             ctypes.c_int
-        ] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     return fn
 
 
@@ -110,7 +154,8 @@ def fused_step(
     ``q``/``k_raw``/``v_raw`` are the current token's unscaled projections
     (B, 1, D); ``k_cache``/``v_cache`` the unsplit (B, T_max, D) slabs with
     K pre-scaled. Returns ``(attn_out (B, 1, D), k_cache, v_cache)``, the
-    caches being the same tensors, updated in place.
+    caches being the same tensors, updated in place. Inside
+    :func:`beam_rows` the prefix is read through its table.
     """
     kind = q.device.type
     if kind == "cpu":
@@ -144,7 +189,10 @@ def fused_step(
     if sms is None:
         sms = _sm_count[where] = torch.cuda.get_device_properties(where).multi_processor_count
     latency = latency_mode(b * n_head, sms)
-    if smem_bytes(t_max, dh, k_cache.element_size(), latency) > SMEM_LIMIT:
+    table = _ROWS.get()
+    if table is not None:
+        _check_table(table, b, t_max, k_cache)
+    if smem_bytes(t_max, dh, k_cache.element_size(), latency, table is not None) > SMEM_LIMIT:
         raise ValueError(f"fused_step: cache length {t_max} needs too much shared memory")
     code = cuda_build.dtype_code(dtype, "fused_step")
     if isinstance(offset, int):  # by value: no device read
@@ -164,7 +212,8 @@ def fused_step(
     err = _kernel()(
         q.data_ptr(), k_raw.data_ptr(), v_raw.data_ptr(), kp, vp, off_ptr, off_stride,
         off_scalar, out.data_ptr(),
-        b, t_max, d, n_head, dh ** -0.25, code, latency, cuda_build.stream_ptr(q),
+        b, t_max, d, n_head, dh ** -0.25, code, latency,
+        None if table is None else table.data_ptr(), cuda_build.stream_ptr(q),
     )
     cuda_build.check(err, "fused_step")
     fused_step.launches += 1

@@ -22,8 +22,11 @@ Port of ``whisper_flamingo_tpu/profiling.py``, with the span recorder added:
 
 The spans the port opens, and where: ``conditioner.tokenize`` and
 ``conditioner.bert`` (``models/bert.HFBertConditioner.encode``);
-``decode.step``, its children ``decode.forward`` and ``decode.sync``
-(``decoding.DecodingTask._main_loop``); ``decode.capture`` inside a
+``decode.step``, its children ``decode.forward`` and ``decode.sync``, and
+the counters ``decode.reorder_indirect`` and ``decode.reorder_copied``, the
+beam steps whose reorder was the row table's and those that still moved
+the self cache (int8kv) (``decoding.DecodingTask._main_loop``);
+``decode.capture`` inside a
 ``decode.forward`` and the counters ``decode.graph_steps``,
 ``decode.eager_steps`` and ``decode.graph_captures``
 (``models.whisper.StepGraphs``); the counters ``decode.xattn_kernel`` and
