@@ -129,15 +129,21 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
             f"{n_data}x{n_model} mesh does not match the {world} ranks of the process group: "
             f"launch with `torchrun --nproc-per-node {n_data * n_model} ...`"
         )
+
+    def group(ranks):
+        # an axis over every rank is the world's group, with its timeout
+        # (a new group would take torch's default) and no second communicator
+        return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+
     groups: Dict[str, Any] = {}
     if n_model > 1:
         for d in range(n_data):
-            g = dist.new_group([d * n_model + m for m in range(n_model)])
+            g = group([d * n_model + m for m in range(n_model)])
             if rank // n_model == d:
                 groups[MODEL_AXIS] = g
     if n_data > 1:
         for m in range(n_model):
-            g = dist.new_group([d * n_model + m for d in range(n_data)])
+            g = group([d * n_model + m for d in range(n_data)])
             if rank % n_model == m:
                 groups[DATA_AXIS] = g
     return Mesh(n_data, n_model, rank, groups)

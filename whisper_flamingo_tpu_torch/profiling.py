@@ -37,7 +37,12 @@ at the Python call: a captured segment's calls once, at capture);
 ``serve.step``, per request ``serve.queued`` and ``serve.in_slot``, and the
 counters ``serve.slot_steps`` and ``serve.tokens``
 (``serving.ContinuousBatcher``); ``train.step``, ``train.forward`` and
-``train.backward`` (``training/steps``); ``av.trunk`` with its children
+``train.backward`` (``training/steps``), and in the audio-visual step
+``train.frozen`` (the frozen trunk and encoder forwards) and the counters
+``train.av_both``, ``train.av_audio`` and ``train.av_video`` (its
+modality draws); ``train.allreduce`` and the counter
+``train.allreduce_bytes`` (``training/optim.WhisperOptimizer``: the
+data-parallel gradient average); ``av.trunk`` with its children
 ``av.frontend`` and ``av.transformer``, and the counters ``av.frames`` and
 ``av.pad_frames`` (``models/avhubert.avhubert_encoder_apply``,
 ``models/visual.visual_frontend_apply``).

@@ -17,6 +17,12 @@ loaded from ``video_model_ckpt`` when set, else random from ``seed``; an
 ``*-avsr`` trunk also reads the stacked-fbank audio stream. Validation runs
 the AV path. Extra keys as in ``whisper_ft``: ``log_every``,
 ``save_top_k``, ``max_steps``.
+
+The frozen Whisper encoder and trunk run forward only inside
+``make_av_train_step`` with autograd left on: nothing of theirs requires
+grad, so no graph or activation is kept, and ``torch.no_grad()`` read the
+same device time, host time and memory on the H100 at
+``av_en_large.yaml``'s widths and batch (``PERF.md``).
 """
 
 from __future__ import annotations

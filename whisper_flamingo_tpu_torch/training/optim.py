@@ -36,7 +36,8 @@ clipping factor. The layout comes from :func:`..convert.jax_leaf`.
 Under a mesh (:meth:`WhisperOptimizer.shard`, after
 :func:`..parallel.mesh.shard_params`) the moments are sliced like their
 parameters, each step first averages the gradients over the data axis in
-one flat ``all_reduce``, and clipping reads the global norm: the squares
+one flat ``all_reduce`` (span ``train.allreduce``, its bytes added to the
+counter ``train.allreduce_bytes``), and clipping reads the global norm: the squares
 of split parameters summed over the model axis, each replicated parameter
 counted once (its gradient is the same on every rank of a model row).
 """
@@ -46,6 +47,7 @@ from __future__ import annotations
 import warnings
 from typing import Callable, Dict, List, Optional
 
+from .. import profiling
 from ..convert import JaxLeaf, jax_leaf
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 
@@ -173,7 +175,10 @@ class WhisperOptimizer:
         mesh = self.mesh
         if mesh is not None and mesh.n_data > 1 and grads:  # the data-parallel average
             flat = torch.cat([g.reshape(-1) for g in grads])  # fp32: trainable masters
-            mesh.all_reduce(flat, DATA_AXIS).div_(mesh.n_data)
+            profiling.count("train.allreduce_bytes", flat.numel() * flat.element_size())
+            with profiling.span("train.allreduce"):
+                mesh.all_reduce(flat, DATA_AXIS)
+            flat.div_(mesh.n_data)
             grads = [part.view_as(g) for g, part in zip(grads, flat.split([g.numel() for g in grads]))]
         return grads
 

@@ -16,8 +16,9 @@ teacher model as a second argument):
   the student's label positions;
 - the audio-visual step (``make_av_train_step``, ``step(state, video,
   batch, generator)``): the AV-HuBERT trunk's features as the gated
-  x-attn stream, the Whisper encoder frozen (forward only), modality
-  dropout from one draw of the step's ``torch.Generator`` per batch.
+  x-attn stream, the Whisper encoder frozen (forward only, autograd on but
+  nothing to record), modality dropout from one draw of the step's
+  ``torch.Generator`` per batch.
 
 The step runs the forward in the compute dtype over the fp32 masters,
 backpropagates (through the flash64 backward kernel when the encoder
@@ -330,10 +331,17 @@ def make_av_train_step(
 
     Modality dropout: one ``u`` per batch from ``generator``; both streams
     if u < prob_av, audio only (the video features zeroed) if u < prob_av +
-    prob_a, video only (the encoder features zeroed) otherwise. The encoder
-    runs forward only (no flash64 backward); the trunk's features are
-    detached under ``freeze_video``. A batch with ``fbank`` and a trunk with
-    an audio trunk feeds both streams to it (``--modalities avsr``)."""
+    prob_a, video only (the encoder features zeroed) otherwise; counters
+    ``train.av_both``, ``train.av_audio``, ``train.av_video`` count the draws.
+    The frozen forwards (span ``train.frozen``) run with autograd on: no
+    parameter or input of theirs requires grad, so they record no graph and
+    keep no activation, and the encoder's flash64 takes its inference
+    forward (no lse, no backward); the remat wrapper runs each block once.
+    On the H100 at the step-2 cell's widths and b16 they took the same
+    device time, host time and memory as under ``torch.no_grad()``, so
+    nothing wraps them. Their outputs are detached (the trunk's under
+    ``freeze_video``). A batch with ``fbank`` and a trunk with an audio trunk
+    feeds both streams to it (``--modalities avsr``)."""
 
     def step(state: TrainState, video, batch: Dict[str, Any], generator: torch.Generator):
         with profiling.span("train.step"):
@@ -341,15 +349,18 @@ def make_av_train_step(
                 u = float(torch.rand((), generator=generator))
                 drop_video = prob_av <= u < prob_av + prob_a
                 drop_audio = u >= prob_av + prob_a
+                profiling.count("train.av_video" if drop_audio else
+                                "train.av_audio" if drop_video else "train.av_both")
                 model = state.model
                 b = to_device(batch, model.device)
-                vfeats = _apply_av_encoder(video, b, dtype)
-                if freeze_video:
-                    vfeats = vfeats.detach()
+                with profiling.span("train.frozen"):
+                    vfeats = _apply_av_encoder(video, b, dtype)
+                    if freeze_video:
+                        vfeats = vfeats.detach()
+                    feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype,
+                                          remat=remat).detach()
                 if drop_video:
                     vfeats = torch.zeros_like(vfeats)
-                feats = encoder_apply(model, dims, b["input_ids"], dtype=dtype,
-                                      remat=remat).detach()
                 if drop_audio:
                     feats = torch.zeros_like(feats)
                 logits, _ = decoder_apply(model, dims, b["dec_input_ids"], feats, xt=vfeats[None],
